@@ -92,11 +92,11 @@ def main() -> None:
     workdir = args.workdir or tempfile.mkdtemp(prefix="vtd_e2e_")
     image_dir = os.path.join(workdir, "images")
 
-    from vision_transformer_detector_tpu.config import (
+    from vision_transformer_detector.config import (
         LossConfig, TrainConfig, get_config)
-    from vision_transformer_detector_tpu.data.annotations import (
+    from vision_transformer_detector.data.annotations import (
         save_annotations_dict, load_annotations_dict)
-    from vision_transformer_detector_tpu.data.pipeline import (
+    from vision_transformer_detector.data.pipeline import (
         CocoDetectionDataset, list_image_paths)
 
     annotations = build_dataset(image_dir, args.images)
@@ -110,10 +110,10 @@ def main() -> None:
     # Stage 2 — train with eval cadence + best-AP checkpointing.
     # The reference notebook's cell 7: model.fit with SaveModelHighestAP
     # (warm-up epochs, eval every skip_epochs, keep the best-AP weights).
-    # CLI: python -m vision_transformer_detector_tpu.cli train \
+    # CLI: python -m vision_transformer_detector.cli train \
     #          --train-images ... --train-annotations ... --preset tiny_96
     # -----------------------------------------------------------------
-    from vision_transformer_detector_tpu.train.trainer import Trainer
+    from vision_transformer_detector.train.trainer import Trainer
 
     config = get_config("tiny_96")
     train_config = TrainConfig(
@@ -140,7 +140,7 @@ def main() -> None:
     # Stage 3 — standalone evaluation (notebook cell 15's evaluate).
     # CLI: ... evaluate --val-images ... --restore best
     # -----------------------------------------------------------------
-    from vision_transformer_detector_tpu.train.trainer import evaluate_map
+    from vision_transformer_detector.train.trainer import evaluate_map
 
     final_map = evaluate_map(state["params"], eval_data, config)
     stage("evaluate", mAP=round(float(final_map), 4))
@@ -150,7 +150,7 @@ def main() -> None:
     # loss/AP charts; utils/plotting mirrors scatters_plot).
     # CLI: ... plot --metrics metrics.jsonl --output curves.html
     # -----------------------------------------------------------------
-    from vision_transformer_detector_tpu.utils.plotting import (
+    from vision_transformer_detector.utils.plotting import (
         plot_training_curves)
 
     curves = plot_training_curves(
@@ -162,11 +162,11 @@ def main() -> None:
     # (the reference's cv2 viewer, vtd.py:2187-2456, as files).
     # CLI: ... visualize --images ... --contact-sheet sheet.html
     # -----------------------------------------------------------------
-    from vision_transformer_detector_tpu.data.pipeline import (
+    from vision_transformer_detector.data.pipeline import (
         load_and_letterbox_image)
-    from vision_transformer_detector_tpu.train.trainer import (
+    from vision_transformer_detector.train.trainer import (
         make_predict_step)
-    from vision_transformer_detector_tpu.utils.visualize import (
+    from vision_transformer_detector.utils.visualize import (
         visualize_predictions, write_contact_sheet)
 
     predict_step = make_predict_step(config)
@@ -189,9 +189,9 @@ def main() -> None:
     # without the package's model code.)
     # CLI: ... export --output-dir artifact --batch-size 4
     # -----------------------------------------------------------------
-    from vision_transformer_detector_tpu.export import (
+    from vision_transformer_detector.export import (
         load_exported, save_exported)
-    from vision_transformer_detector_tpu.ops.decode import (
+    from vision_transformer_detector.ops.decode import (
         transform_predictions)
 
     artifact_dir = save_exported(
@@ -211,7 +211,7 @@ def main() -> None:
     # Stage 7 — serve one HTTP request against the trained weights.
     # CLI: ... serve --restore best --port 8000
     # -----------------------------------------------------------------
-    from vision_transformer_detector_tpu.serving import (
+    from vision_transformer_detector.serving import (
         DetectionServer, DetectionService)
 
     service = DetectionService(config, state["params"],

@@ -3,8 +3,8 @@
 // metrics/coco_eval.py implements pycocotools-COCOeval semantics in pure
 // NumPy; its cost at scale is NOT arithmetic but per-call Python overhead:
 // evaluating 5k images makes ~60k (image, category) Python calls, each
-// doing ~40 tiny-array NumPy ops (measured: ~133 us/pair, 8+ s total —
-// see PERFORMANCE.md). This extension replaces the per-(image, category)
+// doing ~40 tiny-array NumPy ops (measured on the host: ~133 us/pair,
+// 8+ s total). This extension replaces the per-(image, category)
 // inner work — the IoU matrix, the per-area-range ignore/stable-reorder,
 // and the greedy COCO matcher over all IoU thresholds — with ONE C call
 // returning the packed match/ignore masks for every area range at once.

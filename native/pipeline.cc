@@ -3,7 +3,7 @@
 // The reference's per-image path rides TensorFlow's C++ ops
 // (tf.io.decode_image + tf.image.resize_with_pad,
 // vision_transformer_utilities.py:418-449); this extension is the
-// TPU-native framework's equivalent: libjpeg decode and a half-pixel-center
+// framework's equivalent: libjpeg decode and a half-pixel-center
 // bilinear resize into a zero-padded canvas, all outside the GIL so a host
 // worker pool scales with cores. The Python pipeline
 // (data/pipeline.py) uses it when built, falling back to PIL otherwise.

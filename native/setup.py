@@ -1,7 +1,7 @@
 """Build the native pipeline extension.
 
 Usage (from the repo root):
-  python native/setup.py build_ext --build-lib vision_transformer_detector_tpu/_native
+  python native/setup.py build_ext --build-lib vision_transformer_detector/_native
 or via tools/build_native.sh.
 """
 

@@ -3,8 +3,8 @@
 Run as:  python multiprocess_worker.py <pid> <nprocs> <port> <out.json>
 
 Each process owns ONE CPU device of an nprocs-device global mesh (true
-multi-host SPMD topology, the shape the env-gated TPU-pod path uses —
-gloo collectives stand in for ICI). The worker:
+multi-host SPMD topology, the shape a multi-host GPU job uses — gloo
+collectives stand in for NCCL). The worker:
 
   1. brings up jax.distributed (parallel.data.initialize_distributed),
   2. builds the trainer state as GLOBAL arrays (Trainer.init_state's
@@ -33,12 +33,11 @@ def main() -> None:
 
     jax.config.update("jax_platforms", "cpu")
     # Same persistent compile cache the suite uses (tests/conftest.py):
-    # the worker programs repeat across modes/phases/runs, and the
-    # single host core pays full XLA compiles otherwise.
-    jax.config.update("jax_compilation_cache_dir",
-                      os.path.join(os.path.dirname(os.path.dirname(
-                          os.path.abspath(__file__))), ".jax_cache"))
-    jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)
+    # the worker programs repeat across modes/phases/runs.
+    from vision_transformer_detector.utils.runtime import (
+        enable_compilation_cache)
+
+    enable_compilation_cache()
 
     if mode == "cli":
         # The CLI owns the jax.distributed bring-up here (--distributed):
@@ -46,7 +45,7 @@ def main() -> None:
         _cli_train_mode(pid, nprocs, port, out_path)
         return
 
-    from vision_transformer_detector_tpu.parallel.data import (
+    from vision_transformer_detector.parallel.data import (
         initialize_distributed)
 
     initialize_distributed(f"127.0.0.1:{port}", nprocs, pid)
@@ -55,10 +54,10 @@ def main() -> None:
 
     import jax.numpy as jnp
 
-    from vision_transformer_detector_tpu.config import (
+    from vision_transformer_detector.config import (
         DetectorConfig, LossConfig, TrainConfig)
-    from vision_transformer_detector_tpu.parallel.mesh import create_mesh
-    from vision_transformer_detector_tpu.train.trainer import (
+    from vision_transformer_detector.parallel.mesh import create_mesh
+    from vision_transformer_detector.train.trainer import (
         Trainer, create_train_state, make_train_step)
 
     cfg = DetectorConfig(
@@ -94,7 +93,7 @@ def main() -> None:
 
     # Which global-batch rows THIS process must feed is a property of the
     # sharding (mesh device order), not pid arithmetic.
-    from vision_transformer_detector_tpu.parallel.data import (
+    from vision_transformer_detector.parallel.data import (
         process_batch_indices)
     rows = process_batch_indices(mesh, 4)
     local_images = full_images[rows.start:rows.stop]
@@ -204,9 +203,9 @@ def main() -> None:
         # rows are metric no-ops), so the result must equal the
         # single-device evaluation over the same global row order:
         # round 1 assembles [g0, pad, g2, g3], round 2 [g1, pad].
-        from vision_transformer_detector_tpu.metrics.fast_map import (
+        from vision_transformer_detector.metrics.fast_map import (
             JitMeanAveragePrecision)
-        from vision_transformer_detector_tpu.train.trainer import (
+        from vision_transformer_detector.train.trainer import (
             evaluate_map, make_eval_step)
 
         # uint8 stream: the lockstep padder must agree on dtype/layout
@@ -292,7 +291,7 @@ def _cli_train_mode(pid, nprocs, port, out_path) -> None:
 
     from PIL import Image
 
-    from vision_transformer_detector_tpu.cli import main as cli_main
+    from vision_transformer_detector.cli import main as cli_main
 
     # Private per-process copy of the SAME deterministic dataset (no
     # cross-process file races). 10 images: training trims to 8 usable
@@ -361,12 +360,12 @@ def _input_pipeline_mode(pid, nprocs, out_path, jax, jnp) -> None:
     against the deterministic epoch order."""
     from PIL import Image
 
-    from vision_transformer_detector_tpu.config import DetectorConfig
-    from vision_transformer_detector_tpu.data.pipeline import (
+    from vision_transformer_detector.config import DetectorConfig
+    from vision_transformer_detector.data.pipeline import (
         ResumableDataset)
-    from vision_transformer_detector_tpu.parallel.data import (
+    from vision_transformer_detector.parallel.data import (
         global_batches)
-    from vision_transformer_detector_tpu.parallel.mesh import (
+    from vision_transformer_detector.parallel.mesh import (
         batch_sharding, create_mesh)
 
     cfg = DetectorConfig(image_size=(32, 32))

@@ -3,8 +3,8 @@
 import numpy as np
 import pytest
 
-from vision_transformer_detector_tpu import api
-from vision_transformer_detector_tpu.config import DetectorConfig
+from vision_transformer_detector import api
+from vision_transformer_detector.config import DetectorConfig
 
 
 @pytest.fixture(scope="module")
@@ -97,8 +97,8 @@ def test_learning_rate_step_decay_pure():
 
     # The optax schedule used for actual training matches the same
     # trajectory (one step per epoch).
-    from vision_transformer_detector_tpu.config import TrainConfig
-    from vision_transformer_detector_tpu.train.optimizer import (
+    from vision_transformer_detector.config import TrainConfig
+    from vision_transformer_detector.train.optimizer import (
         make_lr_schedule)
     schedule = make_lr_schedule(TrainConfig(
         learning_rate=1.0, epochs_first_lr_decay=10,
@@ -115,6 +115,6 @@ def test_check_weights(detector):
 
 
 def test_metric_alias_is_reference_metric():
-    from vision_transformer_detector_tpu.metrics.mean_average_precision \
+    from vision_transformer_detector.metrics.mean_average_precision \
         import MeanAveragePrecision
     assert api.MeanAveragePrecision is MeanAveragePrecision

@@ -10,7 +10,7 @@ import os
 import numpy as np
 import pytest
 
-from vision_transformer_detector_tpu.cli import main
+from vision_transformer_detector.cli import main
 
 
 @pytest.fixture(scope="module")
@@ -159,7 +159,7 @@ def test_cli_sweep_dataset(dataset, tmp_path, capsys):
 
 
 def test_sweep_rejects_unknown_param(tmp_path):
-    from vision_transformer_detector_tpu.train.sweep import split_overrides
+    from vision_transformer_detector.train.sweep import split_overrides
     with pytest.raises(KeyError, match="not a field"):
         split_overrides({"nonexistent_param": 1})
 
@@ -179,7 +179,7 @@ def test_cli_export_and_reload(tmp_path, capsys):
     assert result["exported"] == out_dir
     assert os.path.exists(os.path.join(out_dir, "model.stablehlo"))
 
-    from vision_transformer_detector_tpu.export import load_exported
+    from vision_transformer_detector.export import load_exported
     detector = load_exported(out_dir)
     out = detector(np.zeros((2, 96, 96, 3), np.float32))
     assert out.shape == (2, 17, 6)
@@ -251,7 +251,7 @@ def test_cli_no_flash_attention_override(tmp_path, capsys):
     a preset's train-only flash override; combining both flags errors."""
     import pytest
 
-    from vision_transformer_detector_tpu.cli import (
+    from vision_transformer_detector.cli import (
         _build_config, build_parser)
 
     parser = build_parser()
@@ -350,14 +350,18 @@ def test_cli_score_coco(tmp_path, capsys):
 
 
 def test_cli_doctor_reports_dead_backend(tmp_path, capsys):
-    """doctor: a backend that cannot answer within the probe deadline is
-    reported dead (not hung-on), native-extension flags are present, and
-    the exit code is nonzero."""
+    """doctor: the devices of this process are reported in process
+    (platform, kind, count); with no accelerator the device is not ok and
+    the exit code is nonzero; native-extension flags are present."""
+    import jax
+
     with pytest.raises(SystemExit) as exc:
         main(["doctor", "--probe-timeout", "0.05"])
     assert exc.value.code == 1
     report = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
-    assert report["device"]["ok"] is False
+    assert report["device"] == {"ok": False, "platform": "cpu",
+                                "kind": jax.devices()[0].device_kind,
+                                "count": len(jax.devices())}
     assert set(report["native"]) == {"coco_json", "pipeline", "coco_eval"}
 
 
@@ -382,7 +386,7 @@ def test_cli_fast_decode_reaches_every_decode_site(dataset, tmp_path,
     """--fast-decode must actually arrive at the decoder on each
     CLI path that decodes files (review finding: the flag parsed
     everywhere but predict/visualize/coco-original ignored it)."""
-    from vision_transformer_detector_tpu.data import pipeline as pl
+    from vision_transformer_detector.data import pipeline as pl
 
     seen = []
     real = pl.load_and_letterbox_image
@@ -429,7 +433,7 @@ def test_cli_fast_decode_reaches_every_decode_site(dataset, tmp_path,
             super().__init__(*a, **kw)
 
     monkeypatch.setattr(pl, "CocoDetectionDataset", SpyDataset)
-    import vision_transformer_detector_tpu.cli as cli_mod
+    import vision_transformer_detector.cli as cli_mod
     monkeypatch.setattr(cli_mod, "CocoDetectionDataset", SpyDataset,
                         raising=False)
     main(["evaluate", "--val-images", dataset["images"],
@@ -505,9 +509,9 @@ def test_cli_shuffle_seed_varies_order(dataset, tmp_path):
     sequences)."""
     import argparse
 
-    from vision_transformer_detector_tpu.cli import (_build_dataset,
+    from vision_transformer_detector.cli import (_build_dataset,
                                                      build_parser)
-    from vision_transformer_detector_tpu.config import get_config
+    from vision_transformer_detector.config import get_config
 
     def build(seed):
         args = build_parser().parse_args(
@@ -545,9 +549,9 @@ def test_cli_datasets_ship_uint8(dataset):
     """The CLI's datasets ship uint8 batches (4x less host->device
     traffic; the jitted train/eval steps normalize on device via
     _maybe_normalize) — round-5 ingest lever."""
-    from vision_transformer_detector_tpu.cli import (_build_dataset,
+    from vision_transformer_detector.cli import (_build_dataset,
                                                      build_parser)
-    from vision_transformer_detector_tpu.config import get_config
+    from vision_transformer_detector.config import get_config
 
     args = build_parser().parse_args(
         ["train", "--train-images", dataset["images"],

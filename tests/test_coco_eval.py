@@ -11,7 +11,7 @@ Two lines of defense, since pycocotools cannot be installed here:
 import numpy as np
 import pytest
 
-from vision_transformer_detector_tpu.metrics.coco_eval import (
+from vision_transformer_detector.metrics.coco_eval import (
     AREA_RANGES, CocoEvaluator, IOU_THRESHOLDS, RECALL_THRESHOLDS,
     detections_from_decoded, ground_truth_from_labels, iou_xywh,
     update_from_fixed_slots)
@@ -474,10 +474,10 @@ def test_original_frame_evaluation_roundtrip(tmp_path):
     import jax
     from PIL import Image
 
-    from vision_transformer_detector_tpu.config import DetectorConfig
-    from vision_transformer_detector_tpu.data.annotations import (
+    from vision_transformer_detector.config import DetectorConfig
+    from vision_transformer_detector.data.annotations import (
         letterbox_boxes)
-    from vision_transformer_detector_tpu.metrics.coco_eval import (
+    from vision_transformer_detector.metrics.coco_eval import (
         evaluate_coco_protocol_original_frame)
 
     cfg = DetectorConfig(
@@ -517,7 +517,7 @@ def test_original_frame_evaluation_roundtrip(tmp_path):
                 (h, w), cfg.image_size)
             # letterbox_boxes maps (cx, cy) in cols 0-1 and scales all 4;
             # cols 2-3 here are (h, w) magnitudes -> same 1/scale factor.
-            from vision_transformer_detector_tpu.data.annotations import (
+            from vision_transformer_detector.data.annotations import (
                 letterbox_params)
             scale, _, _ = letterbox_params((h, w), cfg.image_size)
             for j, r in enumerate(rows):
@@ -621,7 +621,7 @@ def test_randomized_cross_check_with_score_ties(seed):
 
 needs_native = pytest.mark.skipif(
     not __import__(
-        "vision_transformer_detector_tpu.metrics.coco_eval",
+        "vision_transformer_detector.metrics.coco_eval",
         fromlist=["native_matcher_available"]).native_matcher_available(),
     reason="native matcher not built (tools/build_native.sh)")
 
@@ -680,7 +680,7 @@ def test_native_matcher_duplicate_boxes_and_identical_ious():
 
 
 def test_use_native_flag_validation():
-    from vision_transformer_detector_tpu.metrics import coco_eval as ce
+    from vision_transformer_detector.metrics import coco_eval as ce
 
     if ce.native_matcher_available():
         assert CocoEvaluator().use_native is True
@@ -702,7 +702,7 @@ def test_score_coco_results_instances_format(tmp_path):
     """Standalone scorer on a full instances JSON: perfect detections +
     one crowd-only detection (ignored, not a false positive) + a result
     for an unknown image (dropped) -> AP = AR = 1.0."""
-    from vision_transformer_detector_tpu.metrics.coco_eval import (
+    from vision_transformer_detector.metrics.coco_eval import (
         score_coco_results)
 
     gt = {
@@ -740,7 +740,7 @@ def test_score_coco_results_instances_format(tmp_path):
 def test_score_coco_results_dict_format_and_misses(tmp_path):
     """Annotation-dict ground truth (center-format rows, string image
     ids vs int result ids) with one missed ground truth."""
-    from vision_transformer_detector_tpu.metrics.coco_eval import (
+    from vision_transformer_detector.metrics.coco_eval import (
         score_coco_results)
 
     gt = {
@@ -765,7 +765,7 @@ def test_score_coco_results_dict_format_and_misses(tmp_path):
 
 
 def test_score_coco_results_rejects_bad_results(tmp_path):
-    from vision_transformer_detector_tpu.metrics.coco_eval import (
+    from vision_transformer_detector.metrics.coco_eval import (
         score_coco_results)
 
     gt = {"7": [[3, 30.0, 30.0, 20.0, 20.0, 400.0]]}
@@ -776,7 +776,7 @@ def test_score_coco_results_rejects_bad_results(tmp_path):
 
 
 def test_per_category_breakdown_in_summary(tmp_path):
-    from vision_transformer_detector_tpu.metrics.coco_eval import (
+    from vision_transformer_detector.metrics.coco_eval import (
         score_coco_results)
 
     gt = {

@@ -14,11 +14,11 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from vision_transformer_detector_tpu.config import (
+from vision_transformer_detector.config import (
     DetectorConfig, LossConfig, TrainConfig)
-from vision_transformer_detector_tpu.train.trainer import (
+from vision_transformer_detector.train.trainer import (
     Trainer, make_train_step)
-from vision_transformer_detector_tpu.train.optimizer import make_optimizer
+from vision_transformer_detector.train.optimizer import make_optimizer
 
 # Every config: 64px/p16 (4x4 grid, 16 tokens), tiny dims -> seconds-scale
 # CPU compiles. Knobs chosen to collide: multi-scale heads need the grid
@@ -58,7 +58,7 @@ COMBOS = {
 def test_combo_trains_one_step(name):
     cfg = DetectorConfig(**{**BASE, **COMBOS[name]})
     optimizer = make_optimizer(TrainConfig(), steps_per_epoch=1)
-    from vision_transformer_detector_tpu.train.trainer import (
+    from vision_transformer_detector.train.trainer import (
         create_train_state)
     state = create_train_state(jax.random.PRNGKey(0), cfg, optimizer)
     step = make_train_step(cfg, LossConfig(), optimizer, donate=False)
@@ -90,13 +90,13 @@ def test_combo_eval_matches_between_attention_routings():
     """train_use_flash_attention must not leak into eval: the eval step of
     a train-flash config and a pure-einsum config produce identical
     predictions for identical params."""
-    from vision_transformer_detector_tpu.train.trainer import make_eval_step
+    from vision_transformer_detector.train.trainer import make_eval_step
 
     cfg_split = DetectorConfig(**{**BASE,
                                   "train_use_flash_attention": True,
                                   "use_flash_attention": False})
     cfg_plain = DetectorConfig(**{**BASE, "use_flash_attention": False})
-    from vision_transformer_detector_tpu.models.vit_detector import (
+    from vision_transformer_detector.models.vit_detector import (
         init_params)
     params = init_params(jax.random.PRNGKey(1), cfg_plain)
     images = jnp.asarray(

@@ -6,6 +6,7 @@ reference's layer naming scheme (vision_transformer_detector.py:151, 301,
 model with the right values in the right places.
 """
 
+import os
 import sys
 import zipfile
 
@@ -15,12 +16,13 @@ import pytest
 
 h5py = pytest.importorskip("h5py")
 
-sys.path.insert(0, "/root/repo/tools")
+sys.path.insert(0, os.path.join(os.path.dirname(os.path.dirname(
+    os.path.abspath(__file__))), "tools"))
 from convert_tf_checkpoint import (  # noqa: E402
     _natural_key, convert, read_keras_weights)
 
-from vision_transformer_detector_tpu.config import DetectorConfig  # noqa: E402
-from vision_transformer_detector_tpu.models.vit_detector import (  # noqa: E402
+from vision_transformer_detector.config import DetectorConfig  # noqa: E402
+from vision_transformer_detector.models.vit_detector import (  # noqa: E402
     init_params)
 
 CFG = DetectorConfig(
@@ -173,7 +175,7 @@ def test_convert_roundtrip(tmp_path, variant):
 def test_converted_params_run(tmp_path, variant):
     import jax.numpy as jnp
 
-    from vision_transformer_detector_tpu.models.vit_detector import forward
+    from vision_transformer_detector.models.vit_detector import forward
 
     cfg = CFG_VARIANTS[variant]
     fake = _write_fake_keras(tmp_path, cfg)

@@ -7,19 +7,19 @@ import os
 import numpy as np
 import pytest
 
-from vision_transformer_detector_tpu.config import DetectorConfig
-from vision_transformer_detector_tpu.data.annotations import (
+from vision_transformer_detector.config import DetectorConfig
+from vision_transformer_detector.data.annotations import (
     build_annotations_dict,
     labels_from_annotations,
     letterbox_params,
     load_annotations_dict,
 )
-from vision_transformer_detector_tpu.data.categories import (
+from vision_transformer_detector.data.categories import (
     COCO_CATEGORIES,
     COCO_ID_TO_MODEL_ID,
     MODEL_ID_TO_NAME,
 )
-from vision_transformer_detector_tpu.data.pipeline import (
+from vision_transformer_detector.data.pipeline import (
     CocoDetectionDataset,
     normalize_image,
     synthetic_batches,
@@ -100,7 +100,7 @@ def test_golden_val_annotations_dict():
 def test_annotation_diagnostics():
     """Degenerate-box fixes and negative coordinates are reported
     (vtu.py:154-166, 182-186)."""
-    from vision_transformer_detector_tpu.data.annotations import (
+    from vision_transformer_detector.data.annotations import (
         AnnotationDiagnostics)
 
     raw = {"annotations": [
@@ -229,7 +229,7 @@ def test_synthetic_batches():
 def _resumable_fixture(tmp_path, n=9):
     from PIL import Image
 
-    from vision_transformer_detector_tpu.data.pipeline import (
+    from vision_transformer_detector.data.pipeline import (
         ResumableDataset)
 
     paths = []
@@ -305,7 +305,7 @@ def test_abandoned_iteration_does_not_leak_producer(tmp_path):
     import threading
     import time
 
-    from vision_transformer_detector_tpu.data.pipeline import (
+    from vision_transformer_detector.data.pipeline import (
         CocoDetectionDataset)
 
     paths, annotations, cfg = _paths_and_annotations(tmp_path)
@@ -323,7 +323,7 @@ def test_abandoned_iteration_does_not_leak_producer(tmp_path):
 def test_image_id_fallback_and_hidden_files(tmp_path):
     from PIL import Image
 
-    from vision_transformer_detector_tpu.data.pipeline import (
+    from vision_transformer_detector.data.pipeline import (
         image_id_from_path, list_image_paths)
 
     assert image_id_from_path("/x/000000000139.jpg") == "139"
@@ -339,7 +339,7 @@ def test_image_id_fallback_and_hidden_files(tmp_path):
 def test_resumable_sharding_is_stable_across_resume(tmp_path):
     """Shards partition the FULL epoch order; resuming mid-epoch must not
     change which examples belong to this shard (round-3 review)."""
-    from vision_transformer_detector_tpu.data.pipeline import (
+    from vision_transformer_detector.data.pipeline import (
         ResumableDataset)
 
     paths, annotations, cfg = _paths_and_annotations(tmp_path, n=10)
@@ -375,11 +375,11 @@ def test_trainer_prefetch_snapshots_resume_state(tmp_path):
     """Trainer._device_prefetch pulls one batch ahead; the checkpointable
     dataset state it exposes must lag to the batch the consumer actually
     holds (round-3 review: naive get_state() skipped a batch)."""
-    from vision_transformer_detector_tpu.config import (LossConfig,
+    from vision_transformer_detector.config import (LossConfig,
                                                         TrainConfig)
-    from vision_transformer_detector_tpu.data.pipeline import (
+    from vision_transformer_detector.data.pipeline import (
         ResumableDataset)
-    from vision_transformer_detector_tpu.train.trainer import Trainer
+    from vision_transformer_detector.train.trainer import Trainer
 
     paths, annotations, cfg_img = _paths_and_annotations(tmp_path, n=6)
     tiny = DetectorConfig(image_size=(32, 32), embedding_dim=8,
@@ -405,8 +405,8 @@ def test_resumable_shards_equalized_and_rotating(tmp_path):
     number of batches (a one-image imbalance would desync multi-host
     train collectives), and under shuffle the dropped remainder ROTATES
     across epochs instead of permanently excluding the listing's tail."""
-    from vision_transformer_detector_tpu.config import DetectorConfig
-    from vision_transformer_detector_tpu.data.pipeline import (
+    from vision_transformer_detector.config import DetectorConfig
+    from vision_transformer_detector.data.pipeline import (
         ResumableDataset)
 
     cfg = DetectorConfig(image_size=(16, 16))
@@ -460,7 +460,7 @@ def _corrupt_fixture(tmp_path, corrupt_indices, n=6):
 
 @pytest.mark.parametrize("kind", ["empty", "text", "truncated"])
 def test_load_corrupt_image_raises_typed_error(tmp_path, kind):
-    from vision_transformer_detector_tpu.data.pipeline import (
+    from vision_transformer_detector.data.pipeline import (
         CorruptImageError, load_and_letterbox_image)
 
     idx = {"empty": 0, "text": 1, "truncated": 2}[kind]
@@ -475,7 +475,7 @@ def test_load_corrupt_image_raises_typed_error(tmp_path, kind):
 
 
 def test_dataset_on_corrupt_raise_default(tmp_path):
-    from vision_transformer_detector_tpu.data.pipeline import (
+    from vision_transformer_detector.data.pipeline import (
         CorruptImageError)
 
     paths = _corrupt_fixture(tmp_path, {2})
@@ -527,7 +527,7 @@ def test_dataset_on_corrupt_validation(tmp_path):
 
 
 def test_resumable_rejects_skip(tmp_path):
-    from vision_transformer_detector_tpu.data.pipeline import (
+    from vision_transformer_detector.data.pipeline import (
         ResumableDataset)
 
     cfg = DetectorConfig(image_size=(32, 32))
@@ -541,7 +541,7 @@ def test_skip_mode_bounded_decode_window(tmp_path):
     image with no backpressure). Pin: while the consumer holds the
     iterator without draining, at most a bounded window of files has
     been decoded."""
-    from vision_transformer_detector_tpu.data import pipeline as pl
+    from vision_transformer_detector.data import pipeline as pl
 
     paths = _corrupt_fixture(tmp_path, set(), n=64)
     cfg = DetectorConfig(image_size=(32, 32))
@@ -578,7 +578,7 @@ def test_skip_mode_survives_decompression_bomb_and_dedups(tmp_path):
 
     from PIL import Image
 
-    from vision_transformer_detector_tpu.data.pipeline import (
+    from vision_transformer_detector.data.pipeline import (
         CocoDetectionDataset, CorruptImageError, load_and_letterbox_image)
 
     # Real tiny JPEG with SOF0 dims patched huge (parses, then trips the
@@ -636,7 +636,7 @@ def test_process_pool_corrupt_semantics(tmp_path):
     """CorruptImageError crosses the process boundary intact (its
     __reduce__): raise mode surfaces it with the path, skip mode counts
     and backfills exactly like the thread pool."""
-    from vision_transformer_detector_tpu.data.pipeline import (
+    from vision_transformer_detector.data.pipeline import (
         CorruptImageError)
 
     paths = _corrupt_fixture(tmp_path, {1}, n=5)  # 4 good files
@@ -665,7 +665,7 @@ def test_labels_reject_non_integral_categories():
     """Corrupt (non-integral) category ids fail loudly at the pipeline
     boundary instead of silently truncating here while deflating that
     class's AP in the metric (round-4 advisor)."""
-    from vision_transformer_detector_tpu.data.annotations import (
+    from vision_transformer_detector.data.annotations import (
         labels_from_annotations)
 
     cfg = DetectorConfig(image_size=(32, 32))
@@ -684,7 +684,7 @@ def test_prefetch_iter_standalone():
     side, early abandonment does not deadlock the producer thread."""
     import threading
 
-    from vision_transformer_detector_tpu.data.pipeline import prefetch_iter
+    from vision_transformer_detector.data.pipeline import prefetch_iter
 
     assert list(prefetch_iter(iter(range(10)), depth=2)) == list(range(10))
 

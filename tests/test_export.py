@@ -11,12 +11,12 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from vision_transformer_detector_tpu.config import DetectorConfig
-from vision_transformer_detector_tpu.export import (load_exported,
+from vision_transformer_detector.config import DetectorConfig
+from vision_transformer_detector.export import (load_exported,
                                                     save_exported)
-from vision_transformer_detector_tpu.models.vit_detector import (forward,
+from vision_transformer_detector.models.vit_detector import (forward,
                                                                  init_params)
-from vision_transformer_detector_tpu.ops.decode import transform_predictions
+from vision_transformer_detector.ops.decode import transform_predictions
 
 TINY = DetectorConfig(
     image_size=(34, 34), embedding_dim=8, num_heads=2, key_dim=4,
@@ -99,8 +99,8 @@ def test_export_baked_postprocess_roundtrip(tmp_path):
     """`cli export --bake-postprocess` freezes NMS + top-k INTO the graph:
     the artifact returns the postprocess_detections tuple and records the
     spec in config.json; padding is sliced off every tuple leaf."""
-    from vision_transformer_detector_tpu.export import normalize_postprocess
-    from vision_transformer_detector_tpu.ops.nms import (
+    from vision_transformer_detector.export import normalize_postprocess
+    from vision_transformer_detector.ops.nms import (
         postprocess_detections)
 
     params = init_params(jax.random.PRNGKey(0), TINY)
@@ -130,7 +130,7 @@ def test_export_baked_postprocess_roundtrip(tmp_path):
 
 
 def test_normalize_postprocess_rejects_unknown_keys():
-    from vision_transformer_detector_tpu.export import normalize_postprocess
+    from vision_transformer_detector.export import normalize_postprocess
 
     assert normalize_postprocess(None) is None
     full = normalize_postprocess({})
@@ -167,7 +167,7 @@ def test_export_crash_before_swap_preserves_old_artifact(tmp_path,
     silently serving stale weights (round-4 review)."""
     import os
 
-    from vision_transformer_detector_tpu import export as export_mod
+    from vision_transformer_detector import export as export_mod
 
     params = init_params(jax.random.PRNGKey(0), TINY)
     path = str(tmp_path / "artifact")
@@ -180,7 +180,7 @@ def test_export_crash_before_swap_preserves_old_artifact(tmp_path,
 
     monkeypatch.setattr(export_mod, "save_params_npz", boom, raising=False)
     # save_exported imports save_params_npz locally from utils.checkpoint.
-    from vision_transformer_detector_tpu.utils import checkpoint as ckpt
+    from vision_transformer_detector.utils import checkpoint as ckpt
     monkeypatch.setattr(ckpt, "save_params_npz", boom)
     params2 = init_params(jax.random.PRNGKey(1), TINY)
     with pytest.raises(RuntimeError, match="disk full"):

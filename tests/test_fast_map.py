@@ -8,10 +8,10 @@ evictions)."""
 import numpy as np
 import pytest
 
-from vision_transformer_detector_tpu.config import DetectorConfig
-from vision_transformer_detector_tpu.metrics.fast_map import (
+from vision_transformer_detector.config import DetectorConfig
+from vision_transformer_detector.metrics.fast_map import (
     JitMeanAveragePrecision)
-from vision_transformer_detector_tpu.metrics.mean_average_precision import (
+from vision_transformer_detector.metrics.mean_average_precision import (
     MeanAveragePrecision)
 
 CFG = DetectorConfig()

@@ -1,7 +1,8 @@
-"""Pallas kernel numerics vs plain-JAX oracles (interpret mode on CPU).
+"""Attention and layer numerics vs plain-JAX and NumPy oracles.
 
-Each kernel lands behind a flag with the plain-JAX path as oracle
-(SURVEY.md §7 step 6); these tests pin the numerics contract.
+The chunked custom-VJP attention, the implementation choice, the dense and
+LayerNorm layers run here on the CPU; the cuDNN route runs only on a GPU
+(tests marked ``gpu``, run by chip_smoke.py on the card).
 """
 
 import jax
@@ -9,11 +10,10 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from vision_transformer_detector_tpu.kernels.flash_attention import (
-    flash_attention, reference_attention)
-from vision_transformer_detector_tpu.kernels.fused_ffn import (
-    fused_dense_mish)
-from vision_transformer_detector_tpu.models.vit_detector import mish
+from vision_transformer_detector.kernels.flash_attention import (
+    _chunk_group, attention_implementation, flash_attention,
+    reference_attention)
+from vision_transformer_detector.models.vit_detector import mish
 
 
 def _qkv(b, n, h, k, dtype=jnp.float32, seed=0):
@@ -27,10 +27,10 @@ def _qkv(b, n, h, k, dtype=jnp.float32, seed=0):
 
 @pytest.mark.parametrize("n,k", [(196, 64), (256, 64), (300, 40)])
 def test_flash_attention_matches_reference(n, k):
-    """Covers: aligned seq, unaligned seq needing KV masking, and the
-    reference model's head_dim 40 needing zero-padding to 64."""
+    """Covers: short, power-of-two and odd sequence lengths, and the
+    reference model's narrow head_dim 40."""
     q, key, v = _qkv(2, n, 2, k)
-    out = flash_attention(q, key, v, block_q=128, block_kv=128)
+    out = flash_attention(q, key, v)
     expected = reference_attention(q, key, v)
     np.testing.assert_allclose(
         np.asarray(out), np.asarray(expected), atol=2e-5, rtol=2e-5)
@@ -38,7 +38,7 @@ def test_flash_attention_matches_reference(n, k):
 
 def test_flash_attention_bf16():
     q, key, v = _qkv(1, 128, 2, 64, dtype=jnp.bfloat16)
-    out = flash_attention(q, key, v, block_q=128, block_kv=128)
+    out = flash_attention(q, key, v)
     expected = reference_attention(
         q.astype(jnp.float32), key.astype(jnp.float32),
         v.astype(jnp.float32))
@@ -49,14 +49,9 @@ def test_flash_attention_bf16():
 
 
 def test_flash_attention_unpadded_whole_row():
-    """16-aligned N with auto blocks takes the unpadded whole-row
-    schedule (round 3b: block_q = block_kv = N, no 128-rounding) —
-    forward and gradients must still match the einsum oracle."""
-    from vision_transformer_detector_tpu.kernels.flash_attention import (
-        _auto_blocks)
-
-    n = 144                      # >=128, multiple of 16, NOT of 128
-    assert _auto_blocks(n) == (n, n)
+    """A sequence that is a multiple of 16 but not of 128: forward and
+    gradients must match the einsum oracle."""
+    n = 144
     q, key, v = _qkv(2, n, 2, 64)
     out = flash_attention(q, key, v)          # auto blocks
     expected = reference_attention(q, key, v)
@@ -76,49 +71,12 @@ def test_flash_attention_unpadded_whole_row():
 
 
 def test_flash_attention_single_query_block():
-    """Sequence shorter than one block exercises the degenerate grid."""
+    """One batch element and one head: a single chunk."""
     q, key, v = _qkv(1, 64, 1, 64)
-    out = flash_attention(q, key, v, block_q=128, block_kv=128)
+    out = flash_attention(q, key, v)
     expected = reference_attention(q, key, v)
     np.testing.assert_allclose(
         np.asarray(out), np.asarray(expected), atol=2e-5, rtol=2e-5)
-
-
-@pytest.mark.parametrize("m,k,n", [(64, 128, 128), (100, 867, 28),
-                                   (17, 1296, 136)])
-def test_fused_dense_mish_matches_oracle(m, k, n):
-    """Shapes include the reference's patch projection (867->28) and a head
-    layer (1296->136) — deliberately unaligned."""
-    rngs = jax.random.split(jax.random.PRNGKey(0), 3)
-    x = jax.random.normal(rngs[0], (m, k), jnp.float32)
-    w = jax.random.normal(rngs[1], (k, n), jnp.float32) * 0.05
-    b = jax.random.normal(rngs[2], (n,), jnp.float32)
-    out = fused_dense_mish(x, w, b)
-    expected = mish(x @ w + b)
-    np.testing.assert_allclose(
-        np.asarray(out), np.asarray(expected), atol=3e-5, rtol=3e-5)
-
-
-def test_fused_dense_no_activation():
-    rngs = jax.random.split(jax.random.PRNGKey(1), 3)
-    x = jax.random.normal(rngs[0], (32, 64), jnp.float32)
-    w = jax.random.normal(rngs[1], (64, 48), jnp.float32)
-    b = jnp.zeros((48,))
-    out = fused_dense_mish(x, w, b, apply_mish=False)
-    np.testing.assert_allclose(
-        np.asarray(out), np.asarray(x @ w), atol=3e-5, rtol=3e-5)
-
-
-def test_fused_dense_leading_axes():
-    rngs = jax.random.split(jax.random.PRNGKey(2), 3)
-    x = jax.random.normal(rngs[0], (2, 5, 64), jnp.float32)
-    w = jax.random.normal(rngs[1], (64, 32), jnp.float32)
-    b = jax.random.normal(rngs[2], (32,), jnp.float32)
-    out = fused_dense_mish(x, w, b)
-    assert out.shape == (2, 5, 32)
-    expected = mish(x @ w + b)
-    np.testing.assert_allclose(
-        np.asarray(out), np.asarray(expected), atol=3e-5, rtol=3e-5)
 
 
 def test_flash_attention_gradients_match_reference():
@@ -128,8 +86,7 @@ def test_flash_attention_gradients_match_reference():
     q, k, v, g = (jax.random.normal(r, shape) for r in rngs)
 
     def loss_flash(q, k, v):
-        return jnp.sum(flash_attention(q, k, v, block_q=128,
-                                       block_kv=128) * g)
+        return jnp.sum(flash_attention(q, k, v) * g)
 
     def loss_ref(q, k, v):
         return jnp.sum(reference_attention(q, k, v) * g)
@@ -149,15 +106,13 @@ def test_chunked_bwd_variants_match_reference(variant, tol):
     rowsum(p * dp) == rowsum(g * (p @ v)) is exact, so "delta" holds
     fp32 tolerance; bf16 streaming rounds every probability to 8 bits
     of mantissa, so its gradients carry ~1e-2 relative error (same
-    class as the bf16 forward, tools/kernel_checks.py)."""
+    class as the bf16 forward)."""
     rngs = jax.random.split(jax.random.PRNGKey(13), 4)
     shape = (2, 128, 2, 64)
     q, k, v, g = (jax.random.normal(r, shape) for r in rngs)
 
     def loss_variant(q, k, v):
-        return jnp.sum(flash_attention(q, k, v, block_q=128, block_kv=128,
-                                       use_pallas_backward=False,
-                                       bwd_variant=variant) * g)
+        return jnp.sum(flash_attention(q, k, v, bwd_variant=variant) * g)
 
     def loss_ref(q, k, v):
         return jnp.sum(reference_attention(q, k, v) * g)
@@ -180,8 +135,7 @@ def test_chunked_bwd_delta_matches_with_dropout():
     def loss(variant):
         def fn(q, k, v):
             return jnp.sum(flash_attention(
-                q, k, v, block_q=128, block_kv=128,
-                dropout_rate=0.25, dropout_seed=7,
+                q, k, v, dropout_rate=0.25, dropout_seed=7,
                 bwd_variant=variant) * g)
         return fn
 
@@ -193,14 +147,13 @@ def test_chunked_bwd_delta_matches_with_dropout():
 
 
 def test_flash_attention_grad_unaligned_seq():
-    """Gradient path with KV-padding masking active (N=200)."""
+    """Gradient path at an unaligned length (N=200), head dim 40."""
     rngs = jax.random.split(jax.random.PRNGKey(4), 3)
     shape = (1, 200, 2, 40)
     q, k, v = (jax.random.normal(r, shape) for r in rngs)
 
     def loss_flash(q, k, v):
-        return jnp.sum(flash_attention(q, k, v, block_q=128,
-                                       block_kv=128) ** 2)
+        return jnp.sum(flash_attention(q, k, v) ** 2)
 
     def loss_ref(q, k, v):
         return jnp.sum(reference_attention(q, k, v) ** 2)
@@ -215,8 +168,8 @@ def test_flash_attention_grad_unaligned_seq():
 
 def test_remat_encoder_gradients():
     """jax.checkpoint path produces finite grads (vit_l16_640 uses it)."""
-    from vision_transformer_detector_tpu.config import DetectorConfig
-    from vision_transformer_detector_tpu.models.vit_detector import (
+    from vision_transformer_detector.config import DetectorConfig
+    from vision_transformer_detector.models.vit_detector import (
         forward, init_params)
 
     cfg = DetectorConfig(
@@ -231,124 +184,13 @@ def test_remat_encoder_gradients():
                for g in jax.tree_util.tree_leaves(grads))
 
 
-def test_pallas_backward_path_matches_reference():
-    """The alternative Pallas two-kernel backward (USE_PALLAS_BACKWARD)
-    must match reference gradients too."""
-    from vision_transformer_detector_tpu.kernels import flash_attention as fa
-
-    rngs = jax.random.split(jax.random.PRNGKey(5), 4)
-    shape = (1, 200, 2, 40)  # unaligned: exercises padding masks
-    q, k, v, g = (jax.random.normal(r, shape) for r in rngs)
-
-    def loss_flash(q, k, v):
-        return jnp.sum(flash_attention(q, k, v, block_q=128,
-                                       block_kv=128) * g)
-
-    def loss_ref(q, k, v):
-        return jnp.sum(reference_attention(q, k, v) * g)
-
-    old = fa.USE_PALLAS_BACKWARD
-    fa.USE_PALLAS_BACKWARD = True
-    try:
-        grads_flash = jax.grad(loss_flash, argnums=(0, 1, 2))(q, k, v)
-    finally:
-        fa.USE_PALLAS_BACKWARD = old
-    grads_ref = jax.grad(loss_ref, argnums=(0, 1, 2))(q, k, v)
-    for a, b in zip(grads_flash, grads_ref):
-        np.testing.assert_allclose(np.asarray(a), np.asarray(b),
-                                   atol=1e-4, rtol=1e-3)
-
-
-def test_pallas_fused_backward_multi_tile():
-    """Multiple kv tiles AND multiple (batch, head) rows: exercises the
-    fused backward's dq grid accumulation with re-init at each new
-    batch*head row."""
-    from vision_transformer_detector_tpu.kernels import flash_attention as fa
-
-    rngs = jax.random.split(jax.random.PRNGKey(9), 4)
-    shape = (2, 300, 2, 64)  # n_pad 384 -> 3 tiles of 128 per bh row
-    q, k, v, g = (jax.random.normal(r, shape) for r in rngs)
-
-    def loss_flash(q, k, v):
-        return jnp.sum(flash_attention(q, k, v, block_q=128,
-                                       block_kv=128) * g)
-
-    def loss_ref(q, k, v):
-        return jnp.sum(reference_attention(q, k, v) * g)
-
-    old = fa.USE_PALLAS_BACKWARD
-    fa.USE_PALLAS_BACKWARD = True
-    try:
-        grads_flash = jax.grad(loss_flash, argnums=(0, 1, 2))(q, k, v)
-    finally:
-        fa.USE_PALLAS_BACKWARD = old
-    grads_ref = jax.grad(loss_ref, argnums=(0, 1, 2))(q, k, v)
-    for a, b in zip(grads_flash, grads_ref):
-        np.testing.assert_allclose(np.asarray(a), np.asarray(b),
-                                   atol=1e-4, rtol=1e-3)
-
-
-def test_pallas_fused_backward_whole_row_blocks():
-    """Full-N blocks (the measured whole-row schedule): the kv grid axis
-    and the in-kernel q loop both collapse to 1 — dq init + accumulate
-    still runs exactly once per (batch, head) row."""
-    from vision_transformer_detector_tpu.kernels import flash_attention as fa
-
-    rngs = jax.random.split(jax.random.PRNGKey(11), 4)
-    shape = (2, 200, 2, 32)   # n_pad 256 = one whole-row block per bh
-    q, k, v, g = (jax.random.normal(r, shape) for r in rngs)
-
-    def loss_flash(q, k, v):
-        return jnp.sum(flash_attention(q, k, v, block_q=256, block_kv=256,
-                                       use_pallas_backward=True) * g)
-
-    def loss_ref(q, k, v):
-        return jnp.sum(reference_attention(q, k, v) * g)
-
-    grads_flash = jax.grad(loss_flash, argnums=(0, 1, 2))(q, k, v)
-    grads_ref = jax.grad(loss_ref, argnums=(0, 1, 2))(q, k, v)
-    for a, b in zip(grads_flash, grads_ref):
-        np.testing.assert_allclose(np.asarray(a), np.asarray(b),
-                                   atol=1e-4, rtol=1e-3)
-
-
-def test_auto_block_policy():
-    """Lock the measured-best block policy (PERFORMANCE.md round 2b):
-    one KV block at framework sequence lengths, largest VMEM-safe q
-    block, paddings independent."""
-    from vision_transformer_detector_tpu.kernels.flash_attention import (
-        _auto_blocks)
-
-    # reference arch 608px: 1296 tokens, 16-aligned -> whole-row UNPADDED
-    # single block (round 3b: padded q/k/v copies cost more than the
-    # masked partial vregs they avoid)
-    bq, bkv = _auto_blocks(1296)
-    assert bkv == 1296 and bq == 1296
-    # L/16 640px: 1600 tokens, 16-aligned -> unpadded whole row
-    bq, bkv = _auto_blocks(1600)
-    assert bkv == 1600 and bq == 1600
-    # ViT-B/16 384px: 576 tokens -> unpadded whole row
-    assert _auto_blocks(576) == (576, 576)
-    # non-16-aligned lengths keep the padded 128-multiple policy
-    bq, bkv = _auto_blocks(1444)
-    assert bkv == 1536 and bq == 1536
-    # 1024px global: 4096 tokens -> kv capped, q blocked to fit the
-    # fp32 score tile in the ~12 MB budget with zero padding waste
-    bq, bkv = _auto_blocks(4096)
-    assert bkv == 2048 and bq == 1024
-    assert bq * bkv * 4 <= 12 * 1024 * 1024
-    # windowed 256-token fold and tiny test shapes stay minimal
-    assert _auto_blocks(256) == (256, 256)
-    assert _auto_blocks(16) == (128, 128)
-
-
 def test_flash_layout_bhnk_matches_bnhk():
     """layout='bhnk' (heads-major) must match the historical bnhk layout
     exactly — forward and gradients — since it only changes data
     plumbing, not math."""
     import jax
 
-    from vision_transformer_detector_tpu.kernels.flash_attention import (
+    from vision_transformer_detector.kernels.flash_attention import (
         flash_attention)
 
     rng = jax.random.PRNGKey(0)
@@ -374,41 +216,15 @@ def test_flash_layout_bhnk_matches_bnhk():
                                    rtol=1e-5, atol=1e-6)
 
 
-def test_flash_layout_bhnk_pallas_backward():
-    import jax
-
-    from vision_transformer_detector_tpu.kernels.flash_attention import (
-        flash_attention)
-
-    rng = jax.random.PRNGKey(1)
-    b, h, n, k = 2, 3, 80, 16
-    q, key, v = (jax.random.normal(r, (b, h, n, k), jnp.float32) * 0.3
-                 for r in jax.random.split(rng, 3))
-
-    def loss(use_pallas):
-        def fn(q, key, v):
-            out = flash_attention(q, key, v, layout="bhnk",
-                                  use_pallas_backward=use_pallas)
-            return (out * out).sum()
-        return fn
-
-    l0, g0 = jax.value_and_grad(loss(False), argnums=(0, 1, 2))(q, key, v)
-    l1, g1 = jax.value_and_grad(loss(True), argnums=(0, 1, 2))(q, key, v)
-    np.testing.assert_allclose(float(l0), float(l1), rtol=1e-6)
-    for a, c in zip(g0, g1):
-        np.testing.assert_allclose(np.asarray(a), np.asarray(c),
-                                   rtol=1e-4, atol=1e-5)
-
-
 # ----------------------------------------------------------------------
-# In-kernel dropout (counter-based mask; VERDICT r2 next-step #5)
+# Probability dropout (counter-based mask)
 
 
 def _masked_oracle(q, k, v, rate, seed):
     """Dropout-after-softmax oracle using the SAME positional mask the
-    kernel generates (dropout_keep_mask is a pure function, so this is an
-    exact — not statistical — equivalence check)."""
-    from vision_transformer_detector_tpu.kernels.flash_attention import (
+    chunked route generates (dropout_keep_mask is a pure function, so this
+    is an exact — not statistical — equivalence check)."""
+    from vision_transformer_detector.kernels.flash_attention import (
         _keep_threshold, dropout_keep_mask)
 
     b, n, h, kd = q.shape
@@ -461,7 +277,7 @@ def test_flash_dropout_gradients_match_masked_oracle():
 def test_dropout_mask_statistics():
     """Counter-hash mask: keep-rate within 1% of 1-rate, and masks from
     different seeds / batch-heads decorrelated."""
-    from vision_transformer_detector_tpu.kernels.flash_attention import (
+    from vision_transformer_detector.kernels.flash_attention import (
         _keep_threshold, dropout_keep_mask)
 
     n = 512
@@ -508,75 +324,15 @@ def test_flash_dropout_zero_rate_is_identity():
     np.testing.assert_allclose(np.asarray(out), np.asarray(want))
 
 
-def test_fused_ffn_is_differentiable_and_matches_oracle_grads():
-    """--fused-ffn used to crash the first train step: the pallas_call
-    had no VJP and Pallas AD lowering fails. Now a recompute custom VJP
-    makes the kernel differentiable; gradients must match the plain-jnp
-    oracle mish(x @ w + b) for x, w AND b."""
-    from vision_transformer_detector_tpu.kernels.fused_ffn import (
-        fused_dense_mish)
-
-    rngs = jax.random.split(jax.random.PRNGKey(0), 4)
-    x = jax.random.normal(rngs[0], (3, 40, 96), jnp.float32)
-    w = jax.random.normal(rngs[1], (96, 176), jnp.float32) * 0.1
-    b = jax.random.normal(rngs[2], (176,), jnp.float32) * 0.1
-    cot = jax.random.normal(rngs[3], (3, 40, 176), jnp.float32)
-
-    def oracle(x, w, b):
-        z = x @ w + b
-        return jnp.sum((z * jnp.tanh(jax.nn.softplus(z))) * cot)
-
-    def fused(x, w, b):
-        return jnp.sum(fused_dense_mish(x, w, b) * cot)
-
-    gx_o, gw_o, gb_o = jax.grad(oracle, argnums=(0, 1, 2))(x, w, b)
-    gx_f, gw_f, gb_f = jax.grad(fused, argnums=(0, 1, 2))(x, w, b)
-    np.testing.assert_allclose(np.asarray(gx_f), np.asarray(gx_o),
-                               atol=1e-4, rtol=1e-4)
-    np.testing.assert_allclose(np.asarray(gw_f), np.asarray(gw_o),
-                               atol=1e-4, rtol=1e-4)
-    np.testing.assert_allclose(np.asarray(gb_f), np.asarray(gb_o),
-                               atol=1e-4, rtol=1e-4)
-
-
-def test_fused_ffn_trains_end_to_end():
-    """A full train step with use_fused_ffn=True (the CLI --fused-ffn
-    path that used to die at the first gradient trace)."""
-    from vision_transformer_detector_tpu.config import (
-        DetectorConfig, LossConfig, TrainConfig)
-    from vision_transformer_detector_tpu.train.optimizer import (
-        make_optimizer)
-    from vision_transformer_detector_tpu.train.trainer import (
-        create_train_state, make_train_step)
-
-    cfg = DetectorConfig(
-        image_size=(34, 34), embedding_dim=8, num_heads=2, key_dim=4,
-        encoder_blocks=1, encoder_mlp_layers=2, head_last_units=8,
-        head_layers=1, use_fused_ffn=True)
-    optimizer = make_optimizer(TrainConfig(learning_rate=1e-4))
-    state = create_train_state(jax.random.PRNGKey(0), cfg, optimizer)
-    step = make_train_step(cfg, LossConfig(), optimizer, donate=False)
-    images = jax.random.uniform(jax.random.PRNGKey(1), (2, 34, 34, 3),
-                                minval=-1, maxval=1)
-    labels = np.full((2, cfg.max_objects, 6), -8.0, np.float32)
-    labels[..., 0] = 0.0
-    labels[0, 0] = (1, 5, 17.0, 17.0, 10.0, 10.0)
-    state, loss1 = step(state, images, jnp.asarray(labels),
-                        jax.random.PRNGKey(2))
-    state, loss2 = step(state, images, jnp.asarray(labels),
-                        jax.random.PRNGKey(2))
-    assert np.isfinite(float(loss1)) and np.isfinite(float(loss2))
-
-
 def test_int8_serving_with_padded_key_dim():
     """quantize_params(pad_attention_key_dim(params)) — both public
     APIs composed — must forward: the attention head dim is read off
     the quantized layer's (H, K) bias, not config.key_dim (round-4
     review: the reshape crashed on the physical 64 vs nominal 40)."""
-    from vision_transformer_detector_tpu.config import DetectorConfig
-    from vision_transformer_detector_tpu.kernels.quantization import (
+    from vision_transformer_detector.config import DetectorConfig
+    from vision_transformer_detector.kernels.quantization import (
         quantize_params)
-    from vision_transformer_detector_tpu.models.vit_detector import (
+    from vision_transformer_detector.models.vit_detector import (
         forward, init_params, pad_attention_key_dim)
 
     cfg = DetectorConfig(
@@ -595,110 +351,221 @@ def test_int8_serving_with_padded_key_dim():
     assert float(jnp.mean(jnp.abs(quant - base))) < 1.0
 
 
+
+
 # ---------------------------------------------------------------------------
-# Fused LayerNorm (kernels/fused_ln.py) — round-5 inference lever.
+# Chunked custom-VJP backward at multi-chunk, whole-sequence and
+# heads-major shapes.
 
 
-def _xla_ln(x, gamma, beta, eps=1e-3):
-    from vision_transformer_detector_tpu.models.vit_detector import (
-        _layer_norm)
-    return _layer_norm(x, {"gamma": gamma, "beta": beta}, eps=eps)
+@pytest.mark.parametrize("layout,shape", [
+    ("bnhk", (1, 200, 2, 40)),    # unaligned length, narrow head dim
+    ("bnhk", (2, 300, 2, 64)),    # several (batch, head) chunks
+    ("bnhk", (2, 200, 2, 32)),    # one whole sequence per chunk
+    ("bhnk", (2, 3, 80, 16)),     # heads-major layout
+])
+def test_chunked_backward_matches_reference(layout, shape):
+    rngs = jax.random.split(jax.random.PRNGKey(5), 4)
+    q, k, v, g = (jax.random.normal(r, shape) for r in rngs)
+    to_bnhk = ((lambda t: t.transpose(0, 2, 1, 3)) if layout == "bhnk"
+               else (lambda t: t))
+
+    def loss_flash(q, k, v):
+        return jnp.sum(flash_attention(q, k, v, layout=layout,
+                                       implementation="chunked") * g)
+
+    def loss_ref(q, k, v):
+        out = reference_attention(to_bnhk(q), to_bnhk(k), to_bnhk(v))
+        return jnp.sum(to_bnhk(out) * g)
+
+    grads_flash = jax.grad(loss_flash, argnums=(0, 1, 2))(q, k, v)
+    grads_ref = jax.grad(loss_ref, argnums=(0, 1, 2))(q, k, v)
+    for a, b in zip(grads_flash, grads_ref):
+        np.testing.assert_allclose(np.asarray(a), np.asarray(b),
+                                   atol=1e-4, rtol=1e-3)
+
+
+@pytest.mark.parametrize("bh,n,buffers,want", [
+    (16, 576, 3, 1),        # few heads: one per iteration
+    (2048, 256, 3, 16),     # windows fold into many heads: grouped
+    (2048, 4096, 3, 1),     # score budget caps the group at 1
+    (260, 256, 3, 2),       # rounded down to a divisor of bh (3 -> 2)
+])
+def test_chunk_group(bh, n, buffers, want):
+    group = _chunk_group(bh, n, score_buffers=buffers)
+    assert group == want
+    assert bh % group == 0
+
+
+@pytest.mark.parametrize("platform,dtype,dropout,head_dim,want", [
+    ("gpu", jnp.bfloat16, False, 64, "cudnn"),
+    ("gpu", jnp.float16, False, 40, "cudnn"),
+    ("gpu", jnp.float32, False, 64, "chunked"),   # cuDNN takes half only
+    ("gpu", jnp.bfloat16, True, 64, "chunked"),   # dropout needs the mask
+    ("gpu", jnp.bfloat16, False, 4, "chunked"),   # head dim not 8-aligned
+    ("cpu", jnp.bfloat16, False, 64, "chunked"),
+])
+def test_attention_implementation_choice(platform, dtype, dropout, head_dim,
+                                         want):
+    assert attention_implementation(platform, dtype, dropout,
+                                    head_dim) == want
+
+
+def test_flash_attention_rejects_unknown_implementation():
+    q, key, v = _qkv(1, 16, 1, 8)
+    with pytest.raises(ValueError, match="unknown implementation"):
+        flash_attention(q, key, v, implementation="triton")
+    with pytest.raises(ValueError, match="no probability dropout"):
+        flash_attention(q, key, v, implementation="cudnn",
+                        dropout_rate=0.1, dropout_seed=1)
+
+
+# (N, H, K) of each preset's attention: reference_224, vit_s16_224,
+# vit_b16_384, reference_608, vit_l16_640, highres_1024's 16x16 windows.
+PRESET_ATTENTION_SHAPES = [(169, 8, 40), (196, 6, 64), (576, 12, 64),
+                           (1296, 8, 40), (1600, 16, 64), (256, 16, 64)]
+
+
+@pytest.mark.parametrize("n,h,k", PRESET_ATTENTION_SHAPES)
+def test_dot_product_attention_xla_matches_reference(n, h, k):
+    """jax.nn.dot_product_attention's XLA implementation — the portable
+    form of the library call the cuDNN route makes — against the einsum
+    oracle at each preset's attention shape (scale 1: inputs arrive
+    pre-scaled)."""
+    q, key, v = _qkv(1, n, h, k, seed=n)
+    q = q / np.sqrt(k)
+    got = jax.nn.dot_product_attention(q, key, v, scale=1.0,
+                                       implementation="xla")
+    np.testing.assert_allclose(np.asarray(got),
+                               np.asarray(reference_attention(q, key, v)),
+                               atol=2e-5, rtol=2e-5)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("layout", ["bnhk", "bhnk"])
+def test_cudnn_attention_matches_reference(layout):
+    """On the GPU, bf16 attention takes the cuDNN route; forward and
+    gradients stay within bf16 tolerance of the fp32 oracle."""
+    q, key, v = _qkv(2, 576, 4, 64, dtype=jnp.bfloat16, seed=3)
+    g = jax.random.normal(jax.random.PRNGKey(4), q.shape, jnp.float32)
+    assert attention_implementation(jax.default_backend(), q.dtype, False,
+                                    64) == "cudnn"
+    flip = ((lambda t: t.transpose(0, 2, 1, 3)) if layout == "bhnk"
+            else (lambda t: t))
+
+    def loss(fn):
+        def f(q, key, v):
+            return jnp.sum(fn(q, key, v).astype(jnp.float32) * g)
+        return f
+
+    def cudnn(q, key, v):
+        return flip(flash_attention(flip(q), flip(key), flip(v),
+                                    layout=layout))
+
+    def oracle(q, key, v):
+        with jax.default_matmul_precision("highest"):
+            return reference_attention(*(t.astype(jnp.float32)
+                                         for t in (q, key, v)))
+
+    np.testing.assert_allclose(
+        np.asarray(jax.jit(cudnn)(q, key, v), np.float32),
+        np.asarray(jax.jit(oracle)(q, key, v)), atol=2e-2, rtol=2e-2)
+    got = jax.jit(jax.grad(loss(cudnn), argnums=(0, 1, 2)))(q, key, v)
+    want = jax.jit(jax.grad(loss(oracle), argnums=(0, 1, 2)))(q, key, v)
+    for a, b in zip(got, want):
+        b = np.asarray(b, np.float32)
+        np.testing.assert_allclose(np.asarray(a, np.float32), b,
+                                   atol=2e-2 * np.abs(b).max(), rtol=2e-2)
+
+
+@pytest.mark.gpu
+def test_cudnn_route_lowers_to_cudnn_custom_call():
+    """The GPU program of a bf16 call holds cuDNN's fused attention (no
+    silent fallback to another lowering)."""
+    q, key, v = _qkv(1, 256, 2, 64, dtype=jnp.bfloat16)
+    hlo = jax.jit(flash_attention).lower(q, key, v).compile().as_text()
+    assert "cudnn" in hlo.lower()
+
+
+# ---------------------------------------------------------------------------
+# Dense + activation and LayerNorm: the XLA layers the model runs.
+
+
+@pytest.mark.parametrize("lead,k,n", [
+    ((64,), 128, 128),
+    ((100,), 867, 28),      # reference patch projection 867 -> 28
+    ((17,), 1296, 136),     # reference head layer 1296 -> 136
+    ((2, 5), 64, 32),       # leading axes
+])
+def test_dense_activation_matches_oracle(lead, k, n):
+    from vision_transformer_detector.config import DetectorConfig
+    from vision_transformer_detector.models.vit_detector import (
+        _dense_activation)
+
+    rngs = jax.random.split(jax.random.PRNGKey(0), 3)
+    x = jax.random.normal(rngs[0], lead + (k,), jnp.float32)
+    layer = {"kernel": jax.random.normal(rngs[1], (k, n)) * 0.05,
+             "bias": jax.random.normal(rngs[2], (n,))}
+    out = _dense_activation(x, layer, DetectorConfig(), jnp.float32)
+    assert out.shape == lead + (n,)
+    xn, wn, bn = (np.asarray(t, np.float64)
+                  for t in (x, layer["kernel"], layer["bias"]))
+    z = xn @ wn + bn
+    want = z * np.tanh(np.log1p(np.exp(z)))
+    np.testing.assert_allclose(np.asarray(out), want, atol=3e-5, rtol=3e-5)
+
+
+def test_dense_activation_gradients_match_oracle():
+    """Gradients of dense+mish for x, kernel AND bias match autodiff of
+    the plain expression mish(x @ w + b)."""
+    from vision_transformer_detector.config import DetectorConfig
+    from vision_transformer_detector.models.vit_detector import (
+        _dense_activation)
+
+    rngs = jax.random.split(jax.random.PRNGKey(0), 4)
+    x = jax.random.normal(rngs[0], (3, 40, 96), jnp.float32)
+    w = jax.random.normal(rngs[1], (96, 176), jnp.float32) * 0.1
+    b = jax.random.normal(rngs[2], (176,), jnp.float32) * 0.1
+    cot = jax.random.normal(rngs[3], (3, 40, 176), jnp.float32)
+    cfg = DetectorConfig()
+
+    def layer_loss(x, w, b):
+        out = _dense_activation(x, {"kernel": w, "bias": b}, cfg,
+                                jnp.float32)
+        return jnp.sum(out * cot)
+
+    def oracle(x, w, b):
+        return jnp.sum(mish(x @ w + b) * cot)
+
+    got = jax.grad(layer_loss, argnums=(0, 1, 2))(x, w, b)
+    want = jax.grad(oracle, argnums=(0, 1, 2))(x, w, b)
+    for a, c in zip(got, want):
+        np.testing.assert_allclose(np.asarray(a), np.asarray(c),
+                                   atol=1e-4, rtol=1e-4)
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("shape", [(2, 40, 128), (3, 7, 256), (1, 1, 128)])
-def test_fused_ln_matches_xla(dtype, shape):
-    from vision_transformer_detector_tpu.kernels.fused_ln import (
-        fused_layer_norm)
+@pytest.mark.parametrize("shape", [(2, 40, 128), (3, 7, 256), (1, 1, 128),
+                                   (0, 7, 128)])
+def test_layer_norm_fp32_contract(dtype, shape):
+    """_layer_norm computes in fp32 whatever the input dtype and returns
+    the input dtype: it matches a float64 NumPy oracle to fp32 rounding
+    (bf16 inputs to the output's bf16 rounding), the empty batch
+    included."""
+    from vision_transformer_detector.models.vit_detector import (
+        _layer_norm)
 
-    key = jax.random.PRNGKey(0)
-    x = (jax.random.normal(key, shape, jnp.float32) * 3 + 1).astype(dtype)
+    x = (jax.random.normal(jax.random.PRNGKey(0), shape, jnp.float32) * 3
+         + 1).astype(dtype)
     gamma = jax.random.normal(jax.random.PRNGKey(1), (shape[-1],))
     beta = jax.random.normal(jax.random.PRNGKey(2), (shape[-1],))
-    got = fused_layer_norm(x, gamma, beta)
-    want = _xla_ln(x, gamma, beta)
-    assert got.dtype == want.dtype
+    got = _layer_norm(x, {"gamma": gamma, "beta": beta})
+    assert got.dtype == x.dtype and got.shape == shape
+    x64 = np.asarray(x, np.float64)
+    mean = x64.mean(axis=-1, keepdims=True)
+    var = x64.var(axis=-1, keepdims=True)
+    want = ((x64 - mean) / np.sqrt(var + 1e-3) * np.asarray(gamma, np.float64)
+            + np.asarray(beta, np.float64))
     tol = 1e-5 if dtype == "float32" else 2e-2
-    np.testing.assert_allclose(np.asarray(got, np.float32),
-                               np.asarray(want, np.float32),
+    np.testing.assert_allclose(np.asarray(got, np.float64), want,
                                atol=tol, rtol=tol)
-
-
-def test_fused_ln_rejects_unaligned_dim():
-    from vision_transformer_detector_tpu.kernels.fused_ln import (
-        fused_layer_norm)
-
-    with pytest.raises(ValueError, match="multiple of 128"):
-        fused_layer_norm(jnp.ones((2, 5, 28)), jnp.ones(28), jnp.zeros(28))
-
-
-def test_fused_ln_row_padding_exact():
-    """Row counts that don't fill a tile pad internally (and the block
-    size equalizes over the grid, staying a multiple of the 8-sublane
-    fp32 tile); padded rows must not perturb real ones."""
-    from vision_transformer_detector_tpu.kernels.fused_ln import (
-        fused_layer_norm)
-
-    gamma, beta = jnp.ones(128), jnp.zeros(128)
-    for rows, block_rows in ((5, 8), (20, 8), (257, 64), (1, 256)):
-        x = jax.random.normal(jax.random.PRNGKey(3), (rows, 128))
-        got = fused_layer_norm(x, gamma, beta, block_rows=block_rows)
-        want = _xla_ln(x, gamma, beta)
-        np.testing.assert_allclose(np.asarray(got), np.asarray(want),
-                                   atol=1e-5, rtol=1e-5)
-
-
-def test_fused_ln_empty_batch():
-    """A zero-row input (empty eval shard) returns empty like XLA LN
-    instead of dividing by zero at trace time."""
-    from vision_transformer_detector_tpu.kernels.fused_ln import (
-        fused_layer_norm)
-
-    x = jnp.zeros((0, 7, 128))
-    out = fused_layer_norm(x, jnp.ones(128), jnp.zeros(128))
-    assert out.shape == (0, 7, 128)
-
-
-def test_fused_ln_model_routing():
-    """The config flag routes INFERENCE only, and only for 128-aligned
-    embedding dims; training output is bit-identical to flag-off."""
-    from vision_transformer_detector_tpu.config import DetectorConfig
-    from vision_transformer_detector_tpu.models.vit_detector import (
-        forward, init_params)
-
-    cfg = DetectorConfig(
-        image_size=(64, 64), patch_size=16, embedding_dim=128,
-        num_heads=2, key_dim=64, encoder_blocks=2, encoder_mlp_layers=2,
-        head_last_units=16, head_layers=2)
-    cfg_fused = cfg.replace(use_fused_layer_norm=True)
-    params = init_params(jax.random.PRNGKey(0), cfg)
-    images = jax.random.uniform(jax.random.PRNGKey(1), (2, 64, 64, 3),
-                                minval=-1, maxval=1)
-    base_eval = forward(params, images, cfg, train=False)
-    fused_eval = forward(params, images, cfg_fused, train=False)
-    np.testing.assert_allclose(np.asarray(fused_eval),
-                               np.asarray(base_eval),
-                               atol=1e-4, rtol=1e-4)
-
-    # train=True must NOT route through the kernel: bit-identical to
-    # the flag-off train path (no dropout configured, so the only
-    # possible difference would be the LN implementation).
-    base_train = forward(params, images, cfg, train=True)
-    fused_train = forward(params, images, cfg_fused, train=True)
-    np.testing.assert_array_equal(np.asarray(fused_train),
-                                  np.asarray(base_train))
-
-    # Unaligned embedding dim (reference D=28): flag on falls back to
-    # XLA bit-identically instead of raising.
-    ref = DetectorConfig(
-        image_size=(68, 68), patch_size=17, embedding_dim=28,
-        num_heads=2, key_dim=5, encoder_blocks=1, encoder_mlp_layers=1,
-        head_last_units=8, head_layers=1)
-    ref_params = init_params(jax.random.PRNGKey(2), ref)
-    ref_imgs = jax.random.uniform(jax.random.PRNGKey(3), (1, 68, 68, 3),
-                                  minval=-1, maxval=1)
-    np.testing.assert_array_equal(
-        np.asarray(forward(ref_params, ref_imgs,
-                           ref.replace(use_fused_layer_norm=True),
-                           train=False)),
-        np.asarray(forward(ref_params, ref_imgs, ref, train=False)))

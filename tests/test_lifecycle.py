@@ -15,7 +15,7 @@ import urllib.request
 import numpy as np
 import pytest
 
-from vision_transformer_detector_tpu.cli import main
+from vision_transformer_detector.cli import main
 
 
 @pytest.fixture(scope="module")
@@ -41,11 +41,11 @@ def dataset(tmp_path_factory):
 
 
 def test_train_export_serve_score(dataset, tmp_path, capsys):
-    from vision_transformer_detector_tpu.data.categories import (
+    from vision_transformer_detector.data.categories import (
         COCO_ID_TO_MODEL_ID)
-    from vision_transformer_detector_tpu.metrics.coco_eval import (
+    from vision_transformer_detector.metrics.coco_eval import (
         CocoEvaluator)
-    from vision_transformer_detector_tpu.serving import (
+    from vision_transformer_detector.serving import (
         DetectionServer, ExportedDetectionService)
 
     ckpt = str(tmp_path / "ckpt")

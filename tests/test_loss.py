@@ -8,8 +8,8 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from vision_transformer_detector_tpu.config import DetectorConfig, LossConfig
-from vision_transformer_detector_tpu.ops.loss import detection_loss
+from vision_transformer_detector.config import DetectorConfig, LossConfig
+from vision_transformer_detector.ops.loss import detection_loss
 
 CONFIG = DetectorConfig()
 SHAPE = (10, 6)

@@ -9,8 +9,8 @@ metric (SURVEY.md §4). Predictions are fed already-decoded via the
 import numpy as np
 import pytest
 
-from vision_transformer_detector_tpu.config import DetectorConfig
-from vision_transformer_detector_tpu.metrics.mean_average_precision import (
+from vision_transformer_detector.config import DetectorConfig
+from vision_transformer_detector.metrics.mean_average_precision import (
     MeanAveragePrecision,
 )
 

@@ -6,8 +6,8 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from vision_transformer_detector_tpu.config import DetectorConfig
-from vision_transformer_detector_tpu.models.vit_detector import (
+from vision_transformer_detector.config import DetectorConfig
+from vision_transformer_detector.models.vit_detector import (
     count_params,
     extract_patches,
     forward,
@@ -196,7 +196,7 @@ def test_attention_dropout_each_mode():
     # Ring attention drops in-kernel too (round 3; same positional mask
     # as flash) — training forwards differ per rng and stay finite.
     ring = base.replace(ring_attention=True)
-    from vision_transformer_detector_tpu.parallel.mesh import create_mesh
+    from vision_transformer_detector.parallel.mesh import create_mesh
     mesh = create_mesh(data=1, model=2, devices=jax.devices()[:2])
     r1 = forward(params, images, ring, train=True,
                  dropout_rng=jax.random.PRNGKey(2), mesh=mesh)
@@ -209,9 +209,9 @@ def test_attention_dropout_each_mode():
 def test_train_step_with_dropout_each_mode():
     """One full training step with dropout configured under each attention
     mode (VERDICT round-1 item 5)."""
-    from vision_transformer_detector_tpu.config import (
+    from vision_transformer_detector.config import (
         LossConfig, TrainConfig)
-    from vision_transformer_detector_tpu.train.trainer import Trainer
+    from vision_transformer_detector.train.trainer import Trainer
 
     base = DetectorConfig(
         image_size=(32, 32), patch_size=16, embedding_dim=8, num_heads=2,
@@ -269,7 +269,7 @@ def test_window_major_matches_transpose_path():
     plus reshape-only folding must produce exactly the same attention
     output as the per-layer transpose folding, on a grid with MULTIPLE
     windows (4x4 grid, 2x2 windows -> non-trivial permutation)."""
-    from vision_transformer_detector_tpu.models.vit_detector import (
+    from vision_transformer_detector.models.vit_detector import (
         _windowed_attention)
 
     cfg = DetectorConfig(image_size=(64, 64), patch_size=16,
@@ -332,8 +332,8 @@ def test_alternate_remat_matches_no_remat():
     """remat_policy='alternate' (checkpoint every other block) is a pure
     memory/time tradeoff — forward values and gradients match the
     un-remat'd model exactly."""
-    from vision_transformer_detector_tpu.config import LossConfig
-    from vision_transformer_detector_tpu.ops.loss import detection_loss
+    from vision_transformer_detector.config import LossConfig
+    from vision_transformer_detector.ops.loss import detection_loss
 
     cfg = DetectorConfig(image_size=(34, 34), embedding_dim=8, num_heads=2,
                          key_dim=4, encoder_blocks=4, encoder_mlp_layers=2,
@@ -386,7 +386,7 @@ def test_pad_attention_key_dim_exact_forward_and_grads():
     exact: same forward output, same gradients on real weights, and
     identically-zero gradients on the padding (so it stays zero under
     training). VERDICT r2 next-step #4."""
-    from vision_transformer_detector_tpu.models.vit_detector import (
+    from vision_transformer_detector.models.vit_detector import (
         pad_attention_key_dim)
 
     cfg = TINY  # key_dim 8 -> padded 64 exercises the same code path
@@ -467,8 +467,8 @@ def test_windowed_flash_dropout_trains():
     """Scaled stand-in for the 1024px windowed preset: flash + window +
     dropout compiles and yields finite loss/grads (the old path fell
     back to einsum under dropout; at 1024px that OOMed)."""
-    from vision_transformer_detector_tpu.config import LossConfig
-    from vision_transformer_detector_tpu.ops.loss import detection_loss
+    from vision_transformer_detector.config import LossConfig
+    from vision_transformer_detector.ops.loss import detection_loss
 
     cfg = DetectorConfig(
         image_size=(64, 64), patch_size=16, embedding_dim=16, num_heads=2,
@@ -560,7 +560,7 @@ def test_mha_init_matches_keras_fans():
     compute_fans((28, 8, 40)) == (224, 1120)."""
     import math
 
-    from vision_transformer_detector_tpu.models.vit_detector import (
+    from vision_transformer_detector.models.vit_detector import (
         _keras_fans)
 
     assert _keras_fans((28, 8, 40)) == (224, 1120)

@@ -8,7 +8,7 @@ repeat imports are no-ops, failures are cached, the kill switch works.
 
 import os
 
-from vision_transformer_detector_tpu import _native
+from vision_transformer_detector import _native
 
 
 def test_extensions_present_after_import():
@@ -71,5 +71,5 @@ def test_force_rebuild_roundtrip():
     report = _native.build(force=True)
     assert report["ok"] is True
     assert report["attempted"] is True
-    from vision_transformer_detector_tpu._native import (  # noqa: F401
+    from vision_transformer_detector._native import (  # noqa: F401
         _native_coco_eval, _native_coco_json, _native_pipeline)

@@ -3,11 +3,11 @@
 import numpy as np
 import pytest
 
-from vision_transformer_detector_tpu.config import DetectorConfig
-from vision_transformer_detector_tpu.data import pipeline
+from vision_transformer_detector.config import DetectorConfig
+from vision_transformer_detector.data import pipeline
 
 native = pytest.importorskip(
-    "vision_transformer_detector_tpu._native._native_pipeline",
+    "vision_transformer_detector._native._native_pipeline",
     reason="native extension not built (tools/build_native.sh)")
 
 
@@ -118,8 +118,8 @@ def test_cmyk_jpeg_falls_back_to_pil(tmp_path):
     error path doesn't swallow the corrupt-file case."""
     from PIL import Image
 
-    from vision_transformer_detector_tpu.config import DetectorConfig
-    from vision_transformer_detector_tpu.data.pipeline import (
+    from vision_transformer_detector.config import DetectorConfig
+    from vision_transformer_detector.data.pipeline import (
         load_and_letterbox_image, native_available)
 
     path = tmp_path / "cmyk.jpg"

@@ -4,7 +4,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from vision_transformer_detector_tpu.ops.nms import (
+from vision_transformer_detector.ops.nms import (
     detection_scores,
     non_max_suppression,
     postprocess_detections,

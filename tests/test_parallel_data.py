@@ -2,9 +2,9 @@
 
 import numpy as np
 
-from vision_transformer_detector_tpu.parallel.data import (
+from vision_transformer_detector.parallel.data import (
     global_batch_from_local, global_batches)
-from vision_transformer_detector_tpu.parallel.mesh import (
+from vision_transformer_detector.parallel.mesh import (
     DATA_AXIS, create_mesh)
 
 
@@ -33,7 +33,7 @@ def test_make_array_from_process_local_data_real_call():
     (single-process degenerate call: local data IS the global batch)."""
     import jax
 
-    from vision_transformer_detector_tpu.parallel.mesh import batch_sharding
+    from vision_transformer_detector.parallel.mesh import batch_sharding
 
     mesh = create_mesh(data=8, model=1)
     local = np.arange(8 * 4, dtype=np.float32).reshape(8, 4)
@@ -74,10 +74,10 @@ def test_global_batch_feeds_train_step():
     import jax
     import jax.numpy as jnp
 
-    from vision_transformer_detector_tpu.config import (
+    from vision_transformer_detector.config import (
         DetectorConfig, LossConfig, TrainConfig)
-    from vision_transformer_detector_tpu.parallel.mesh import batch_sharding
-    from vision_transformer_detector_tpu.train.trainer import Trainer
+    from vision_transformer_detector.parallel.mesh import batch_sharding
+    from vision_transformer_detector.train.trainer import Trainer
 
     mesh = create_mesh(data=4, model=2)
     cfg = DetectorConfig(
@@ -107,9 +107,9 @@ def test_global_batch_feeds_train_step():
 def test_process_batch_indices_single_process():
     """One process owns every shard: the full range, on both pure-DP and
     DP x TP meshes (model columns replicate, data rows partition)."""
-    from vision_transformer_detector_tpu.parallel.data import (
+    from vision_transformer_detector.parallel.data import (
         process_batch_indices)
-    from vision_transformer_detector_tpu.parallel.mesh import create_mesh
+    from vision_transformer_detector.parallel.mesh import create_mesh
 
     assert process_batch_indices(create_mesh(data=8, model=1), 16) \
         == range(0, 16)
@@ -124,9 +124,9 @@ def test_synced_eval_batches_pads_ragged_tail():
     rounds: a ragged final batch is padded up to the data-axis device
     count with inert rows (zero images, EMPTY_SLOT labels) and the valid
     mask marks the real rows."""
-    from vision_transformer_detector_tpu.config import (
+    from vision_transformer_detector.config import (
         EMPTY_SLOT_VALUE, DetectorConfig)
-    from vision_transformer_detector_tpu.parallel.data import (
+    from vision_transformer_detector.parallel.data import (
         synced_global_eval_batches)
 
     cfg = DetectorConfig(image_size=(8, 8), max_objects=3)
@@ -153,7 +153,7 @@ def test_synced_eval_batches_pads_ragged_tail():
 
 
 def test_process_shard_spec_single_process():
-    from vision_transformer_detector_tpu.parallel.data import (
+    from vision_transformer_detector.parallel.data import (
         process_shard_spec)
 
     mesh = create_mesh(data=4, model=2)
@@ -170,7 +170,7 @@ def test_synced_eval_batches_zero_row_batch_is_not_exhaustion():
     """A yielded zero-row batch mid-stream must be skipped, not treated
     as end-of-data (round-4 review: it terminated the rounds early and
     the eval silently scored a truncated dataset)."""
-    from vision_transformer_detector_tpu.parallel.data import (
+    from vision_transformer_detector.parallel.data import (
         synced_global_eval_batches)
 
     mesh = create_mesh(data=4, model=2)
@@ -193,7 +193,7 @@ def test_process_shard_spec_rejects_unaligned_rows(monkeypatch):
     while its peer loaded a quarter — now it refuses loudly."""
     import pytest
 
-    from vision_transformer_detector_tpu.parallel import data as pdata
+    from vision_transformer_detector.parallel import data as pdata
 
     mesh = create_mesh(data=4, model=2)
     monkeypatch.setattr(pdata, "process_batch_indices",

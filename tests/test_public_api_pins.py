@@ -13,7 +13,7 @@ def test_select_detections_matches_metric_positivity():
     confidence derives from distance-to-nearest-integer."""
     import jax.numpy as jnp
 
-    from vision_transformer_detector_tpu.ops.decode import (
+    from vision_transformer_detector.ops.decode import (
         classification_confidence, select_detections)
 
     decoded = np.zeros((1, 4, 6), np.float32)
@@ -31,7 +31,7 @@ def test_select_detections_matches_metric_positivity():
 
 
 def test_detected_coco_ids_default_table():
-    from vision_transformer_detector_tpu.data.categories import (
+    from vision_transformer_detector.data.categories import (
         CATEGORY_NAMES_TO_DETECT, detected_coco_ids)
 
     ids = detected_coco_ids()
@@ -41,7 +41,7 @@ def test_detected_coco_ids_default_table():
 
 
 def test_annotations_dict_save_load_roundtrip(tmp_path):
-    from vision_transformer_detector_tpu.data.annotations import (
+    from vision_transformer_detector.data.annotations import (
         load_annotations_dict, save_annotations_dict)
 
     d = {"42": [[1, 16.0, 16.0, 8.0, 8.0, 64.0]]}
@@ -52,7 +52,7 @@ def test_annotations_dict_save_load_roundtrip(tmp_path):
 
 
 def test_is_quantized_discriminates_layers():
-    from vision_transformer_detector_tpu.kernels.quantization import (
+    from vision_transformer_detector.kernels.quantization import (
         is_quantized)
 
     assert is_quantized({"kernel_q": 1, "scale": 2, "bias": 3})

@@ -5,11 +5,11 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from vision_transformer_detector_tpu.config import (
+from vision_transformer_detector.config import (
     DetectorConfig, LossConfig, TrainConfig)
-from vision_transformer_detector_tpu.kernels.quantization import (
+from vision_transformer_detector.kernels.quantization import (
     int8_dense, quantize_params)
-from vision_transformer_detector_tpu.models.vit_detector import (
+from vision_transformer_detector.models.vit_detector import (
     forward, init_params)
 
 TINY = DetectorConfig(
@@ -24,7 +24,7 @@ def test_int8_dense_close_to_fp32():
     x = jnp.asarray(rng.normal(0, 1.0, (5, 64)).astype(np.float32))
     want = np.asarray(x) @ layer["kernel"] + layer["bias"]
 
-    from vision_transformer_detector_tpu.kernels.quantization import (
+    from vision_transformer_detector.kernels.quantization import (
         _quantize_dense_layer)
     got = np.asarray(int8_dense(x, _quantize_dense_layer(layer)))
     # ~1% relative error budget for 8-bit weights x 8-bit activations.
@@ -35,7 +35,7 @@ def test_int8_dense_close_to_fp32():
 def test_quantized_forward_is_dropin():
     """quantize_params output feeds forward() directly under jit; decoded
     detections agree with fp32 within the int8 error budget."""
-    from vision_transformer_detector_tpu.ops.decode import (
+    from vision_transformer_detector.ops.decode import (
         transform_predictions)
 
     params = init_params(jax.random.PRNGKey(0), TINY)
@@ -58,9 +58,9 @@ def test_quantized_forward_is_dropin():
 def test_quantized_ap_retention():
     """Overfit a tiny detector, quantize, and the streaming mAP must hold
     (the end-to-end accuracy guard for the serving path)."""
-    from vision_transformer_detector_tpu.train.optimizer import (
+    from vision_transformer_detector.train.optimizer import (
         make_optimizer)
-    from vision_transformer_detector_tpu.train.trainer import (
+    from vision_transformer_detector.train.trainer import (
         create_train_state, evaluate_map, make_train_step)
 
     rng_np = np.random.default_rng(0)
@@ -99,26 +99,29 @@ def test_quantized_multi_scale_head():
     assert bool(jnp.all(jnp.isfinite(out)))
 
 
-def test_fused_int8_dense_matches_jnp_int8():
-    """The Pallas quantize-in-kernel path must match the jnp int8 path
-    (same math, no HBM int8 copies)."""
-    from vision_transformer_detector_tpu.kernels.quantization import (
-        _quantize_dense_layer, fused_int8_dense)
+@pytest.mark.parametrize("kernel_shape,bias_shape,mha_out", [
+    ((200, 96), (96,), False),           # plain dense layer
+    ((16, 2, 8), (2, 8), False),         # MHA q/k/v projection (D, H, K)
+    ((2, 8, 16), (16,), True),           # MHA output projection (H, K, D)
+])
+def test_int8_dense_routing(kernel_shape, bias_shape, mha_out):
+    """Every quantized layer the model's _dense meets goes through
+    int8_dense (the plain XLA int8 path): same values, compute dtype."""
+    from vision_transformer_detector.kernels.quantization import (
+        _quantize_dense_layer)
+    from vision_transformer_detector.models.vit_detector import _dense
 
     rng = np.random.default_rng(1)
     layer = _quantize_dense_layer(
-        {"kernel": rng.normal(0, 0.3, (200, 96)).astype(np.float32),
-         "bias": rng.normal(0, 0.1, (96,)).astype(np.float32)})
-    x = jnp.asarray(rng.normal(0, 1.0, (3, 7, 200)).astype(np.float32))
-    want = np.asarray(int8_dense(x, layer))
-    got = np.asarray(fused_int8_dense(x, layer)).astype(np.float32)
-    # bf16 output rounding on top of identical int math.
-    scale = np.max(np.abs(want))
-    np.testing.assert_allclose(got, want, atol=0.01 * scale)
-
-    # Fused mish == mish(linear).
-    def mish(v):
-        return v * np.tanh(np.log1p(np.exp(v)))
-    got_m = np.asarray(fused_int8_dense(x, layer, apply_mish=True)
-                       ).astype(np.float32)
-    np.testing.assert_allclose(got_m, mish(want), atol=0.02 * scale)
+        {"kernel": rng.normal(0, 0.3, kernel_shape).astype(np.float32),
+         "bias": rng.normal(0, 0.1, bias_shape).astype(np.float32)},
+        mha_out=mha_out)
+    in_dim = layer["kernel_q"].shape[0]
+    x = jnp.asarray(rng.normal(0, 1.0, (3, 7, in_dim)).astype(np.float32))
+    for dtype in (jnp.float32, jnp.bfloat16):
+        got = _dense(x, layer, dtype)
+        assert got.dtype == dtype
+        assert got.shape == (3, 7) + bias_shape
+        np.testing.assert_array_equal(
+            np.asarray(got, np.float32),
+            np.asarray(int8_dense(x, layer).astype(dtype), np.float32))

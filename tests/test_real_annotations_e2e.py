@@ -21,11 +21,11 @@ from real_annotation_fixture import (
     build_image_dir,
     canvas_size,
 )
-from vision_transformer_detector_tpu import api
-from vision_transformer_detector_tpu.config import DetectorConfig
-from vision_transformer_detector_tpu.data.annotations import (
+from vision_transformer_detector import api
+from vision_transformer_detector.config import DetectorConfig
+from vision_transformer_detector.data.annotations import (
     labels_from_annotations, load_annotations_dict)
-from vision_transformer_detector_tpu.metrics.mean_average_precision import (
+from vision_transformer_detector.metrics.mean_average_precision import (
     MeanAveragePrecision)
 
 pytestmark = pytest.mark.skipif(
@@ -92,7 +92,7 @@ def test_metric_on_real_labels_is_deterministically_one(annotations):
     assert float(metric.result()) == pytest.approx(1.0)
 
     # The jitted metric agrees on the same real-annotation stream.
-    from vision_transformer_detector_tpu.metrics.fast_map import (
+    from vision_transformer_detector.metrics.fast_map import (
         JitMeanAveragePrecision)
     fast = JitMeanAveragePrecision(CFG)
     for image_id in PICKED_IDS:
@@ -107,7 +107,7 @@ def test_cli_evaluate_on_real_annotations(annotations, image_dir, tmp_path,
                                           capsys):
     """CLI `evaluate` runs the whole stack (pipeline -> model -> decode ->
     streaming mAP) over the real annotation content."""
-    from vision_transformer_detector_tpu.cli import main
+    from vision_transformer_detector.cli import main
 
     ann_path = str(tmp_path / "val_subset.json")
     with open(ann_path, "w") as f:

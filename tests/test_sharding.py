@@ -7,12 +7,12 @@ import numpy as np
 import pytest
 from jax.sharding import PartitionSpec as P
 
-from vision_transformer_detector_tpu.config import (
+from vision_transformer_detector.config import (
     DetectorConfig, LossConfig, TrainConfig)
-from vision_transformer_detector_tpu.parallel.mesh import (
+from vision_transformer_detector.parallel.mesh import (
     MODEL_AXIS, batch_sharding, create_mesh, param_shardings, replicated)
-from vision_transformer_detector_tpu.train.optimizer import make_optimizer
-from vision_transformer_detector_tpu.train.trainer import (
+from vision_transformer_detector.train.optimizer import make_optimizer
+from vision_transformer_detector.train.trainer import (
     Trainer, create_train_state, make_train_step)
 
 TINY = DetectorConfig(
@@ -111,7 +111,7 @@ def test_sequence_sharding_compiles_and_matches():
     base = TINY.replace(attention_window=1)
     mesh = create_mesh(data=4, model=2)
 
-    from vision_transformer_detector_tpu.models.vit_detector import (
+    from vision_transformer_detector.models.vit_detector import (
         forward, init_params)
 
     params = init_params(jax.random.PRNGKey(0), base)
@@ -149,7 +149,7 @@ def test_dp_eval_matches_single_device():
     produce the same decoded predictions as a single-device eval; a
     ragged final batch (not divisible by the axis) still evaluates,
     unsharded."""
-    from vision_transformer_detector_tpu.train.trainer import make_eval_step
+    from vision_transformer_detector.train.trainer import make_eval_step
 
     mesh = create_mesh(data=8, model=1)
     trainer = Trainer(TINY, LossConfig(), TrainConfig(), mesh=mesh)

@@ -5,9 +5,9 @@ import json
 import numpy as np
 import pytest
 
-from vision_transformer_detector_tpu.config import (
+from vision_transformer_detector.config import (
     DetectorConfig, LossConfig, TrainConfig)
-from vision_transformer_detector_tpu.train.sweep import (
+from vision_transformer_detector.train.sweep import (
     expand_grid, run_sweep)
 
 TINY = DetectorConfig(

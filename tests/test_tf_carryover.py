@@ -23,14 +23,15 @@ import pytest
 
 pytest.importorskip("h5py")
 
-sys.path.insert(0, "/root/repo/tools")
+sys.path.insert(0, os.path.join(os.path.dirname(os.path.dirname(
+    os.path.abspath(__file__))), "tools"))
 from convert_tf_checkpoint import convert, read_keras_weights  # noqa: E402
 from test_convert import _write_fake_keras  # noqa: E402
 
-from vision_transformer_detector_tpu.config import DetectorConfig  # noqa: E402
-from vision_transformer_detector_tpu.models.vit_detector import (  # noqa: E402
+from vision_transformer_detector.config import DetectorConfig  # noqa: E402
+from vision_transformer_detector.models.vit_detector import (  # noqa: E402
     count_params, forward)
-from vision_transformer_detector_tpu.utils.checkpoint import (  # noqa: E402
+from vision_transformer_detector.utils.checkpoint import (  # noqa: E402
     load_params_npz, save_params_npz)
 
 GOLDEN_PATH = os.path.join(
@@ -71,7 +72,7 @@ def carryover_logits(tmp_dir: str, cfg: DetectorConfig = None) -> np.ndarray:
 
     npz_path = os.path.join(str(tmp_dir), "converted.npz")
     save_params_npz(npz_path, params)
-    from vision_transformer_detector_tpu.models.vit_detector import (
+    from vision_transformer_detector.models.vit_detector import (
         init_params)
     template = init_params(jax.random.PRNGKey(1), cfg)
     loaded = load_params_npz(npz_path, template)

@@ -8,11 +8,11 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from vision_transformer_detector_tpu.config import (
+from vision_transformer_detector.config import (
     DetectorConfig, LossConfig, TrainConfig)
-from vision_transformer_detector_tpu.train.optimizer import (
+from vision_transformer_detector.train.optimizer import (
     clip_weights, make_lr_schedule, make_optimizer)
-from vision_transformer_detector_tpu.train.trainer import (
+from vision_transformer_detector.train.trainer import (
     Trainer, create_train_state, evaluate_map, make_eval_step,
     make_train_step)
 
@@ -102,9 +102,9 @@ def test_device_normalize_within_one_ulp_of_host():
     multiply-by-reciprocal, so device inputs can differ from
     pipeline.normalize_image by at most 1 ulp of [-1,1] (1.2e-7) —
     never more."""
-    from vision_transformer_detector_tpu.data.pipeline import (
+    from vision_transformer_detector.data.pipeline import (
         normalize_image)
-    from vision_transformer_detector_tpu.train.trainer import (
+    from vision_transformer_detector.train.trainer import (
         _maybe_normalize)
 
     every_byte = np.arange(256, dtype=np.uint8)
@@ -172,7 +172,7 @@ def test_fit_scanned_matches_loop(tmp_path, dropout, use_mesh):
     eval_data = [data[0]]
     mesh = None
     if use_mesh:
-        from vision_transformer_detector_tpu.parallel.mesh import create_mesh
+        from vision_transformer_detector.parallel.mesh import create_mesh
         mesh = create_mesh(data=2, model=1, devices=jax.devices()[:2])
 
     def run(epochs_per_call, tag):
@@ -267,7 +267,7 @@ def test_check_weights_cadence(tmp_path, caplog):
                       weight_threshold=0.0)
     state = trainer.init_state()
     with caplog.at_level(logging.INFO,
-                         logger="vision_transformer_detector_tpu.train"
+                         logger="vision_transformer_detector.train"
                                 ".trainer"):
         trainer.fit(state, [_batch()], epochs=4)
     assert any("Largest_weight changed to:" in r.message
@@ -294,8 +294,8 @@ def test_gradient_accumulation():
     Adam's first-step update is ~lr*sign(g), which amplifies fp noise on
     near-zero gradient elements.)
     """
-    from vision_transformer_detector_tpu.models.vit_detector import forward
-    from vision_transformer_detector_tpu.ops.loss import detection_loss
+    from vision_transformer_detector.models.vit_detector import forward
+    from vision_transformer_detector.ops.loss import detection_loss
 
     rng_np = np.random.default_rng(0)
     h, w = TINY.image_size
@@ -344,7 +344,7 @@ def test_gradient_accumulation():
 def test_config_travels_with_checkpoint(tmp_path):
     """Trainer.save writes config.json; loading it reconstructs the exact
     config triple (tuples restored from JSON lists)."""
-    from vision_transformer_detector_tpu.config import load_configs
+    from vision_transformer_detector.config import load_configs
 
     cfg = TINY.replace(head_scales=(1, 2))
     trainer = Trainer(cfg, LOSS, TC, checkpoint_dir=str(tmp_path))
@@ -355,7 +355,7 @@ def test_config_travels_with_checkpoint(tmp_path):
     assert loss == LOSS
     assert train == TC
     # Round-tripped config drives the model (hashable, jit-static).
-    from vision_transformer_detector_tpu.models.vit_detector import forward
+    from vision_transformer_detector.models.vit_detector import forward
     h, w = det.image_size
     out = forward(state["params"], jnp.zeros((1, h, w, 3)), det)
     assert out.shape == (1, det.max_objects, 6)
@@ -364,7 +364,7 @@ def test_config_travels_with_checkpoint(tmp_path):
 def test_rolling_checkpoints_keep_last_k(tmp_path):
     """keep_checkpoints=k: step-stamped history is bounded, named
     checkpoints survive GC, and restore_latest resumes the newest step."""
-    from vision_transformer_detector_tpu.utils import checkpoint as ckpt_lib
+    from vision_transformer_detector.utils import checkpoint as ckpt_lib
 
     trainer = Trainer(TINY, LOSS, TC, checkpoint_dir=str(tmp_path),
                       keep_checkpoints=2)
@@ -401,7 +401,7 @@ def test_restore_latest_skips_partial_checkpoint(tmp_path):
     instead of failing hard (ADVICE round 2)."""
     import shutil
 
-    from vision_transformer_detector_tpu.utils import checkpoint as ckpt_lib
+    from vision_transformer_detector.utils import checkpoint as ckpt_lib
 
     trainer = Trainer(TINY, LOSS, TC, checkpoint_dir=str(tmp_path))
     state = trainer.init_state()
@@ -483,7 +483,7 @@ def test_bf16_nu_stochastic_rounding_escapes_absorption():
     target in expectation (code-review round-3 finding)."""
     import optax
 
-    from vision_transformer_detector_tpu.train.optimizer import (
+    from vision_transformer_detector.train.optimizer import (
         scale_by_adam_compact)
 
     g = {"w": jnp.full((512,), jnp.sqrt(2.0))}   # g^2 = 2.0
@@ -510,7 +510,7 @@ def test_bf16_nu_stochastic_rounding_escapes_absorption():
 def test_stochastic_rounding_is_deterministic_per_step():
     """Counter-based bits: same state + grads -> identical rounded nu
     (replay/restore safety)."""
-    from vision_transformer_detector_tpu.train.optimizer import (
+    from vision_transformer_detector.train.optimizer import (
         scale_by_adam_compact)
 
     tx = scale_by_adam_compact()
@@ -616,7 +616,7 @@ def test_dataset_sidecar_gc_and_staleness(tmp_path, async_ckpt):
     """Rolling GC removes pruned checkpoints' sidecars; a save with no
     dataset state clears a stale same-name sidecar. Same behaviour with
     async checkpointing (the sidecar write is synchronous either way)."""
-    from vision_transformer_detector_tpu.utils import checkpoint as ckpt_lib
+    from vision_transformer_detector.utils import checkpoint as ckpt_lib
 
     trainer = Trainer(TINY, LOSS, TC, checkpoint_dir=str(tmp_path),
                       keep_checkpoints=2, async_checkpointing=async_ckpt)
@@ -673,7 +673,7 @@ def test_lr_schedule_accumulation_counts_optimizer_steps():
     assert float(schedule(10 * 25)) == pytest.approx(1e-4)
     assert float(schedule(30 * 25)) == pytest.approx(1e-5)
     # make_optimizer wires every_k from the config itself.
-    from vision_transformer_detector_tpu.train.optimizer import (
+    from vision_transformer_detector.train.optimizer import (
         make_lr_schedule as mk)
     direct = mk(tc, steps_per_epoch=100, every_k=tc.accumulate_steps)
     assert float(direct(250)) == float(schedule(250))
@@ -691,7 +691,7 @@ def test_lr_schedule_zero_length_interval_matches_reference():
     assert float(schedule(10)) == pytest.approx(1e-4)   # one decay at 10
     assert float(schedule(40)) == pytest.approx(1e-5)   # budget carried
 
-    from vision_transformer_detector_tpu.api import learning_rate_step_decay
+    from vision_transformer_detector.api import learning_rate_step_decay
     lr = 1e-3
     seen = []
     for epoch in range(50):
@@ -733,9 +733,9 @@ def test_fit_scanned_ragged_batches_diagnosed():
 def test_host_and_device_class_confidence_agree():
     """metrics._class_confidence (the host twin used by both scorers)
     matches ops.decode.classification_confidence bit-for-bit in fp32."""
-    from vision_transformer_detector_tpu.metrics.mean_average_precision \
+    from vision_transformer_detector.metrics.mean_average_precision \
         import _class_confidence
-    from vision_transformer_detector_tpu.ops.decode import (
+    from vision_transformer_detector.ops.decode import (
         classification_confidence)
 
     v = np.linspace(-1.0, 80.0, 971, dtype=np.float32)

@@ -65,13 +65,13 @@ def main() -> None:
         data = json.load(f)
 
     events = data.get("traceEvents", [])
-    # Device tracks: pid names containing "TPU"/"Device" (host python
-    # threads are excluded so host-side dispatch doesn't double-count).
+    # Device tracks: pid names containing "/device" (host python threads
+    # are excluded so host-side dispatch doesn't double-count).
     pid_names = {e["pid"]: e["args"].get("name", "")
                  for e in events
                  if e.get("ph") == "M" and e.get("name") == "process_name"}
     device_pids = {pid for pid, name in pid_names.items()
-                   if "TPU" in name or "/device" in name.lower()}
+                   if "/device" in name.lower()}
 
     by_op = collections.Counter()
     by_cat = collections.Counter()

@@ -59,7 +59,7 @@ def main() -> None:
     parser.add_argument("--images", type=int, default=20_000)
     args = parser.parse_args()
 
-    from vision_transformer_detector_tpu.data import annotations as ann
+    from vision_transformer_detector.data import annotations as ann
 
     if not ann.native_parser_available():
         raise SystemExit("native parser not built; run tools/build_native.sh")

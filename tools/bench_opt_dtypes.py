@@ -8,7 +8,7 @@ the optimizer-state HBM reads+writes. Variants:
   * mu_bf16    — optax.adam(mu_dtype=bf16)
   * munu_bf16  — scale_by_adam_compact (both moments bf16)
 
-Same time_jitted methodology as tools/bench_suite.py. Run on TPU:
+Same time_jitted methodology as tools/bench_suite.py. Run on the GPU:
   python tools/bench_opt_dtypes.py [--preset vit_l16_640] [--batch 8]
 """
 
@@ -26,16 +26,16 @@ def main() -> None:
     import jax
     import jax.numpy as jnp
 
-    from vision_transformer_detector_tpu.config import (
+    from vision_transformer_detector.config import (
         LossConfig, TrainConfig, get_config)
-    from vision_transformer_detector_tpu.models.vit_detector import (
+    from vision_transformer_detector.models.vit_detector import (
         init_params)
-    from vision_transformer_detector_tpu.train.optimizer import (
+    from vision_transformer_detector.train.optimizer import (
         make_optimizer)
-    from vision_transformer_detector_tpu.train.trainer import (
+    from vision_transformer_detector.train.trainer import (
         make_train_step)
-    from vision_transformer_detector_tpu.utils.profiling import time_jitted
-    from vision_transformer_detector_tpu.utils.runtime import (
+    from vision_transformer_detector.utils.profiling import time_jitted
+    from vision_transformer_detector.utils.runtime import (
         enable_compilation_cache)
 
     parser = argparse.ArgumentParser()

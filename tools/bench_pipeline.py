@@ -30,8 +30,8 @@ def main() -> None:
     import numpy as np
     from PIL import Image
 
-    from vision_transformer_detector_tpu.config import DetectorConfig
-    from vision_transformer_detector_tpu.data import pipeline
+    from vision_transformer_detector.config import DetectorConfig
+    from vision_transformer_detector.data import pipeline
 
     config = DetectorConfig(image_size=(args.size, args.size))
     rng = np.random.default_rng(0)
@@ -58,7 +58,7 @@ def main() -> None:
                 args.images / seconds, 1)
 
         if pipeline.native_available():
-            from vision_transformer_detector_tpu._native import (
+            from vision_transformer_detector._native import (
                 _native_pipeline)
             blobs = [open(p, "rb").read() for p in paths]
             tic = time.perf_counter()

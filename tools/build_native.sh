@@ -2,9 +2,9 @@
 # Build the native JPEG-decode/letterbox extension into the package.
 set -euo pipefail
 cd "$(dirname "$0")/.."
-mkdir -p vision_transformer_detector_tpu/_native
-touch vision_transformer_detector_tpu/_native/__init__.py
+mkdir -p vision_transformer_detector/_native
+touch vision_transformer_detector/_native/__init__.py
 python native/setup.py build_ext \
-    --build-lib vision_transformer_detector_tpu/_native \
+    --build-lib vision_transformer_detector/_native \
     --build-temp build/native >/dev/null
-echo "built: $(ls vision_transformer_detector_tpu/_native/*.so)"
+echo "built: $(ls vision_transformer_detector/_native/*.so)"

@@ -91,7 +91,7 @@ def convert(weights: Dict[str, np.ndarray], config) -> dict:
     archive, and no genuine one exists in this environment to validate a
     speculative mapping against).
     """
-    from vision_transformer_detector_tpu.models.vit_detector import (
+    from vision_transformer_detector.models.vit_detector import (
         init_params)
     import jax
 
@@ -193,8 +193,8 @@ def main() -> None:
     parser.add_argument("--embedding-dim", type=int, default=28)
     args = parser.parse_args()
 
-    from vision_transformer_detector_tpu.config import DetectorConfig
-    from vision_transformer_detector_tpu.utils.checkpoint import (
+    from vision_transformer_detector.config import DetectorConfig
+    from vision_transformer_detector.utils.checkpoint import (
         save_params_npz)
 
     config = DetectorConfig(

@@ -48,7 +48,7 @@ def main() -> None:
                         default="artifacts/overlay_overfit.html")
     args = parser.parse_args()
 
-    from vision_transformer_detector_tpu.utils.plotting import (
+    from vision_transformer_detector.utils.plotting import (
         read_metrics, scatters_plot)
 
     epochs, losses, ap_epochs, aps = read_metrics(args.metrics)
@@ -62,7 +62,7 @@ def main() -> None:
     ours_e = [e for e in ref_e if e in loss_at]
     scatters = [
         (ref_e, ref_loss, "reference loss (TF/GPU 2022)"),
-        (ours_e, [loss_at[e] for e in ours_e], "this repo loss (TPU)"),
+        (ours_e, [loss_at[e] for e in ours_e], "this repo loss"),
         (ref_e, ref_ap, "reference AP"),
         ([e for e in ref_e if e in ap_at],
          [ap_at[e] for e in ref_e if e in ap_at], "this repo AP"),
